@@ -1,0 +1,149 @@
+"""Threefry-2x32 keys and draws, bit for bit those of ``jax.random``.
+
+Every random draw of the reference derives from ``jax.random``'s
+threefry2x32 keys (jax 0.9.0 with ``jax_threefry_partitionable=True``),
+so the port reproduces that generator exactly:
+
+* :func:`threefry2x32` — the 20-round block function
+  (``jax/_src/prng.py`` ``_threefry2x32_lowering``);
+* :func:`PRNGKey`, :func:`fold_in` and :func:`split` — the key
+  constructors (``prng.py`` ``threefry_seed``, ``_threefry_fold_in``,
+  ``_threefry_split_foldlike``);
+* :func:`random_bits`, :func:`uniform` and :func:`randint` — the draws
+  (``prng.py`` ``_threefry_random_bits_partitionable``;
+  ``jax/_src/random.py`` ``_uniform``, ``_randint``).
+
+A key is an int64 tensor of shape ``[..., 2]`` holding two uint32
+words; leading dimensions are a batch of keys (what ``jax.vmap`` over
+keys gives in the reference).  A draw of shape ``shape`` from a key
+batch ``[..., 2]`` has shape ``[..., *shape]``.  All arithmetic is
+int64 masked to 32 bits: PyTorch has no ``+``, ``<<`` or ``>>`` on
+``torch.uint32`` on the CPU, and the same code then runs on the CPU and
+on CUDA with identical results.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_KS_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _as_u32(x, device) -> torch.Tensor:
+    """Python int or integer tensor -> int64 tensor of its uint32 bits."""
+    return torch.as_tensor(x, dtype=torch.int64, device=device) & MASK32
+
+
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The threefry2x32 block function over broadcasting int64 tensors
+    of uint32 values: key ``(k0, k1)``, counter ``(x0, x1)``."""
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + k0) & MASK32
+    x1 = (x1 + k1) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1).bitwise_and_(MASK32)
+            x1 = ((x1 << r) | (x1 >> (32 - r))).bitwise_and_(MASK32)
+            x1 = x1.bitwise_xor_(x0)
+        x0 = (x0 + ks[(i + 1) % 3]).bitwise_and_(MASK32)
+        x1 = (x1 + ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(MASK32)
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:  # noqa: N802 (jax name)
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: ``[0, seed]``."""
+    if not -(2 ** 31) <= int(seed) < 2 ** 32:
+        raise ValueError(f"seed {seed} does not fit 32 bits")
+    return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64,
+                        device=device)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: hash the uint32 ``data`` into ``key``.
+
+    The seed key of ``data`` is ``[0, data]``, so this is the block
+    function on counter ``(0, data)``.  ``data`` broadcasts against
+    the key batch: a key ``[2]`` with ids ``[m]`` gives keys ``[m, 2]``."""
+    d = _as_u32(data, key.device)
+    y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def _iota_counts(shape: tuple, device) -> torch.Tensor:
+    """Low words of the reshaped uint64 iota; the high words are zero
+    for every draw smaller than 2**32 elements."""
+    total = math.prod(shape)
+    if total >= 2 ** 32:
+        raise ValueError(f"draw of {total} values needs high counter words")
+    return torch.arange(total, dtype=torch.int64, device=device).reshape(shape)
+
+
+def _bits_pair(key: torch.Tensor, shape: tuple):
+    """Block function of each key in the batch over the draw's counters:
+    two ``[..., *shape]`` words."""
+    lo = _iota_counts(shape, key.device)
+    expand = (slice(None),) * (key.dim() - 1) + (None,) * len(shape)
+    k0 = key[..., 0][expand]
+    k1 = key[..., 1][expand]
+    return threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (foldlike form): ``[..., 2]`` -> ``[..., num, 2]``."""
+    y0, y1 = _bits_pair(key, (num,))
+    return torch.stack((y0, y1), dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+    """32-bit ``jax.random.bits``: int64 ``[..., *shape]`` of uint32 values."""
+    y0, y1 = _bits_pair(key, tuple(shape))
+    return y0 ^ y1
+
+
+def uniform(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+    """float32 ``jax.random.uniform`` in [0, 1): the top 23 bits as the
+    mantissa of a float in [1, 2), minus one.  (Other bounds would add a
+    scale and shift whose rounding XLA may fuse; the port draws none.)"""
+    bits = random_bits(key, shape)
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return floats - 1.0
+
+
+def _clip_int32(x) -> torch.Tensor:
+    return torch.clamp(x, -(2 ** 31), 2 ** 31 - 1)
+
+
+def randint(key: torch.Tensor, shape: tuple, minval, maxval) -> torch.Tensor:
+    """int32 ``jax.random.randint`` in [minval, maxval).
+
+    As in the reference: the key splits in two, each half draws 32 bits,
+    and the pair is reduced modulo the span with the multiply-mod step
+    ``(hi % span) * (2**16 % span)**2 + lo % span``, every product and
+    sum wrapping at 32 bits.  ``minval`` and ``maxval`` are ints or
+    int tensors that broadcast against ``[..., *shape]``."""
+    dev = key.device
+    minval = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    out_of_range = maxval > 2 ** 31 - 1
+    minval = _clip_int32(minval)
+    maxval = _clip_int32(maxval)
+    keys = split(key, 2)
+    higher = random_bits(keys[..., 0, :], shape)
+    lower = random_bits(keys[..., 1, :], shape)
+    span = (maxval - minval) & MASK32
+    span = torch.where(maxval <= minval, torch.ones_like(span), span)
+    span = torch.where(out_of_range & (maxval > minval),
+                       (span + 1) & MASK32, span)
+    # A span that wrapped to 0 (the full 2**32 range) leaves the offset
+    # as the raw bits, as the reference's remainders by zero do.
+    safe = torch.where(span == 0, torch.full_like(span, 2 ** 32), span)
+    mult = (2 ** 16) % safe
+    mult = ((mult * mult) & MASK32) % safe
+    off = (((higher % safe) * mult) & MASK32) + (lower % safe)
+    off = (off & MASK32) % safe
+    return ((minval + off) & MASK32).to(torch.int32)

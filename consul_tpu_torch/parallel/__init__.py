@@ -1,0 +1,27 @@
+"""The sharded plane: D logical shards of the node axis on one device."""
+
+from consul_tpu_torch.parallel.mesh import (
+    NODE_AXIS,
+    Mesh,
+    block_size,
+    make_mesh,
+    mesh_for,
+)
+from consul_tpu_torch.parallel.shard import (
+    exchange_outbox,
+    outbox_budget,
+    pack_outbox,
+    sharded_broadcast_scan,
+)
+
+__all__ = [
+    "Mesh",
+    "NODE_AXIS",
+    "block_size",
+    "exchange_outbox",
+    "make_mesh",
+    "mesh_for",
+    "outbox_budget",
+    "pack_outbox",
+    "sharded_broadcast_scan",
+]

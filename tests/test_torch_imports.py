@@ -1,0 +1,55 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "consul_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "jaxlib", "consul_tpu")
+
+MODULES = (
+    "consul_tpu_torch", "consul_tpu_torch.convert", "consul_tpu_torch.ops",
+    "consul_tpu_torch.ops.ring_exchange", "consul_tpu_torch.models",
+    "consul_tpu_torch.parallel", "consul_tpu_torch.protocol",
+    "consul_tpu_torch.sim", "chip_smoke",
+)
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert out.stdout.strip() == "", f"port loaded {out.stdout.strip()}"
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES]
+)
+def test_no_file_imports_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
