@@ -14,11 +14,21 @@ Run from the root of the repository.  Phases, each fatal on failure:
   3. the threefry draws on CUDA against the same draws on the CPU, and
      against golden values computed with jax 0.9.0
      (``jax_threefry_partitionable=True``);
-  4. the slice: the 1M-node Serf event broadcast (LAN, fanout 4, edges,
-     30 ticks, seed 0) unsharded and over 8 logical shards with both
-     outbox transports, bit-equal per tick with no overflow, the ring
+  4. the broadcast slice: the 1M-node Serf event broadcast (LAN, fanout
+     4, edges, 30 ticks, seed 0) unsharded and over 8 logical shards with
+     both outbox transports, bit-equal per tick with no overflow, the ring
      kernel launched once per tick; the 1M-node aggregate study
-     (60 ticks); and a small study held against the port on the CPU.
+     (60 ticks); and a small study held against the port on the CPU;
+  5. the SWIM slice: the bench headline, a 1M-node SWIM crash study (WAN,
+     30% loss, subject 42, seed 0) with aggregate delivery for 450 ticks
+     and with edges delivery for 100, each checked for first suspicion
+     within 10 probe intervals, no DEAD view before the suspicion minimum
+     has passed since the first suspicion, a ``dead_known`` that never
+     falls, and ``suspecting + dead_known <= n - 1``; the degraded1m
+     Lifeguard A/B at 1M nodes for 160 ticks, Lifeguard on and off; and
+     CUDA held against the CPU at n=4096 (SWIM edges and Lifeguard edges
+     with every fault primitive field for field on every tick, SWIM
+     aggregate by the arrival-threshold rule).
 
 The next-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -52,6 +62,10 @@ N_1M = 1_000_000
 SHARDS = 8
 EDGE_STEPS = 30
 AGG_STEPS = 60
+SWIM_AGG_STEPS = 450     # bench.py's STEPS for the headline
+SWIM_EDGE_STEPS = 100    # bench.py's STEPS_EDGES
+LIFEGUARD_STEPS = 160    # bench.py's cut of degraded1m's 300 ticks
+SMALL_N = 4096
 
 
 def log(msg: str) -> None:
@@ -303,6 +317,243 @@ def phase_slice(dev, card: str) -> int:
     return launches
 
 
+def swim_headline_cfg(delivery: str):
+    from consul_tpu_torch import SwimConfig
+    from consul_tpu_torch.protocol import WAN
+
+    return SwimConfig(n=N_1M, subject=42, loss=0.30, profile=WAN,
+                      delivery=delivery)
+
+
+def check_swim_report(rep, cfg, tag: str) -> None:
+    """The headline's invariants: the subject crashes at tick 0 and
+    never refutes."""
+    sus = np.asarray(rep.suspecting, np.int64)
+    dead = np.asarray(rep.dead_known, np.int64)
+    check(sus.shape == (rep.ticks,) and dead.shape == (rep.ticks,),
+          f"{tag}: output shapes")
+    first_sus = rep.first_tick(sus)
+    check(first_sus is not None
+          and first_sus + 1 <= 10 * cfg.probe_interval_ticks,
+          f"{tag}: first suspicion at tick {first_sus}, later than 10 "
+          "probe intervals")
+    lo, _ = cfg.suspicion_bounds_ticks
+    first_dead = rep.first_tick(dead)
+    check(first_dead is None or first_dead - first_sus >= lo,
+          f"{tag}: DEAD at tick {first_dead}, {lo} ticks not passed since "
+          f"first suspicion at {first_sus}")
+    check(bool(np.all(np.diff(dead) >= 0)), f"{tag}: dead_known fell")
+    check(bool(np.all(sus + dead <= cfg.n - 1)),
+          f"{tag}: suspecting + dead_known > n - 1")
+
+
+def phase_swim(dev, card: str) -> None:
+    """The SWIM headline at 1M nodes, aggregate and edges.  The path runs
+    no kernel of the port's own: the ring kernel's count, zeroed before
+    each run, must read 0 after it."""
+    import torch
+
+    from consul_tpu_torch import run_swim
+    from consul_tpu_torch.ops import ring_exchange
+
+    launches = 0
+    for delivery, steps in (("aggregate", SWIM_AGG_STEPS),
+                            ("edges", SWIM_EDGE_STEPS)):
+        cfg = swim_headline_cfg(delivery)
+        # Eager PyTorch compiles nothing: a few ticks warm the allocator.
+        run_swim(cfg, 5, seed=0, warmup=False, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        ring_exchange.launches = 0
+        rep = run_swim(cfg, steps, seed=0, warmup=False, device=dev)
+        launches += ring_exchange.launches
+        s = rep.summary()
+        row = {"run": f"swim_{delivery}_1m", "ticks": steps,
+               "rounds_per_sec": rep.rounds_per_sec, "wall_s": rep.wall_s,
+               "first_suspect_ms": s["first_suspect_ms"],
+               "first_dead_ms": s["first_dead_ms"],
+               "t99_dead_known_ms": s["t99_dead_known_ms"],
+               "suspecting_final": s["suspecting_final"],
+               "dead_known_final": s["dead_known_final"],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "device": rep.device, "card": card}
+        log("study " + json.dumps(row))
+        check_swim_report(rep, cfg, f"swim_{delivery}_1m")
+    log(f"ring kernel launches on the SWIM path: {launches}")
+    check(launches == 0, "ring kernel launched on the SWIM path")
+
+
+def phase_lifeguard(dev, card: str) -> None:
+    """degraded1m's environment at 1M nodes, Lifeguard on then off."""
+    import dataclasses
+
+    from consul_tpu_torch import LifeguardConfig, run_lifeguard
+    from consul_tpu_torch.protocol import WAN
+    from consul_tpu_torch.sim.scenarios import degraded1m_environment
+
+    faults, loss, ack_late = degraded1m_environment()
+    cfg = LifeguardConfig(n=N_1M, subject=7, subject_alive=True, loss=loss,
+                          ack_late=ack_late, profile=WAN,
+                          delivery="aggregate", lifeguard=True,
+                          faults=faults)
+    run_lifeguard(cfg, 5, seed=0, warmup=False, device=dev)
+    reps = {}
+    for on in (True, False):
+        rep = run_lifeguard(dataclasses.replace(cfg, lifeguard=on),
+                            LIFEGUARD_STEPS, seed=0, warmup=False,
+                            device=dev)
+        reps[on] = rep
+        s = rep.summary()
+        log("study " + json.dumps({
+            "run": f"lifeguard_degraded_1m_{'on' if on else 'off'}",
+            "ticks": LIFEGUARD_STEPS, "rounds_per_sec": rep.rounds_per_sec,
+            "wall_s": rep.wall_s, "fp_total": s["fp_total"],
+            "refute_total": s["refute_total"],
+            "mean_awareness_final": s["mean_awareness_final"],
+            "suspecting_final": s["suspecting_final"],
+            "device": rep.device, "card": card}))
+        check(rep.suspecting.shape == (LIFEGUARD_STEPS,),
+              "lifeguard output shape")
+        check(bool(np.all(np.isfinite(rep.mean_awareness))),
+              "mean_awareness not finite")
+        check(bool(np.all((rep.mean_awareness >= 0)
+                          & (rep.mean_awareness <= 7))),
+              "mean_awareness outside [0, 7]")
+        check(bool(np.all(rep.suspecting + rep.dead_known <= N_1M - 1)),
+              "suspecting + dead_known > n - 1")
+    check(float(reps[False].mean_awareness[-1]) == 0.0,
+          "awareness moved with Lifeguard off")
+
+
+def to_cpu(state):
+    return type(state)(*(x.cpu() for x in state))
+
+
+def state_diff(want, got, skip=None) -> str:
+    """The first field where two CPU states differ (dtype included),
+    leaving out the nodes in ``skip``; '' where they agree."""
+    for name, x, y in zip(want._fields, want, got):
+        if x.dtype != y.dtype:
+            return name
+        if skip is not None and x.shape == skip.shape:
+            x, y = x[~skip], y[~skip]
+        if not np.array_equal(x.numpy(), y.numpy()):
+            return name
+    return ""
+
+
+def _aggregate_flips(cfg, state, key):
+    """bool[n] receivers whose SWIM aggregate arrival of some class
+    differs between the card and the CPU in the round from ``state``,
+    after checking the shared uniforms bit for bit, each threshold within
+    1 ulp of its float64 value, and that a differing receiver's uniform
+    lies between the two thresholds."""
+    import torch
+
+    from consul_tpu_torch.ops import arrival_rate, owned_uniform, split
+
+    n = cfg.n
+    dead_now = (not cfg.subject_alive) and int(state.tick) >= cfg.fail_at_tick
+    flips = torch.zeros(n, dtype=torch.bool)
+    ids = torch.arange(n, dtype=torch.int32)
+    k_cls = split(split(key, 5)[0], 3)
+    for c, tx in enumerate((state.tx_suspect, state.tx_dead,
+                            state.tx_refute)):
+        send = tx.cpu() > 0
+        send[cfg.subject] &= not dead_now
+        per_dev = []
+        for where in (key.device, "cpu"):
+            s = send.to(where)
+            lam = arrival_rate(torch.sum(s, dtype=torch.float32), s,
+                               cfg.fanout, cfg.loss, n)
+            u = owned_uniform(k_cls[c].to(where), ids.to(where))
+            per_dev.append((lam.cpu(), u.cpu(), (-torch.expm1(-lam)).cpu()))
+        (lam_d, u_d, thr_d), (lam_c, u_c, thr_c) = per_dev
+        check(torch.equal(lam_d, lam_c), "aggregate rates CUDA != CPU")
+        check(torch.equal(u_d, u_c), "aggregate uniforms CUDA != CPU")
+        truth = (-torch.expm1(-lam_c.double())).float()
+        for thr in (thr_d, thr_c):
+            gap = (thr.view(torch.int32).long()
+                   - truth.view(torch.int32).long()).abs()
+            check(int(gap.max()) <= 1, "threshold > 1 ulp from float64")
+        flip = (u_c < thr_d) != (u_c < thr_c)
+        lo = torch.minimum(thr_d, thr_c)[flip]
+        hi = torch.maximum(thr_d, thr_c)[flip]
+        check(bool(((lo <= u_c[flip]) & (u_c[flip] < hi)).all()),
+              "receiver differs outside the threshold band")
+        flips |= flip
+    return flips
+
+
+def phase_small_parity(dev) -> None:
+    """The round on the card against the round on the CPU at n=4096."""
+    import torch
+
+    from consul_tpu_torch import LifeguardConfig, SwimConfig
+    from consul_tpu_torch.models import (
+        lifeguard_init,
+        lifeguard_round,
+        swim_init,
+        swim_round,
+    )
+    from consul_tpu_torch.models.lifeguard import lifeguard_constants
+    from consul_tpu_torch.models.swim import swim_constants
+    from consul_tpu_torch.ops import PRNGKey, fold_in
+    from consul_tpu_torch.sim import (
+        ChurnWindow,
+        DegradedSet,
+        FaultSchedule,
+        LossRamp,
+        Partition,
+    )
+    from consul_tpu_torch.sim.scenarios import degraded1m
+
+    faults = FaultSchedule(
+        ramps=(LossRamp(((10, 0.2), (50, 0.0))),),
+        partitions=(Partition(start=15, heal=45, segments=2, severity=0.8),),
+        degraded=(DegradedSet(frac=0.1, drop=0.5, late=0.6, seed=3),),
+        churn=(ChurnWindow(start=20, end=60, p_offline=0.05),),
+    )
+    # LAN at n=4096: suspicion minimum 72.2 ticks, so these depths see
+    # dead declarations.  The degraded set drops half its sends, so the
+    # mean send survival is an exact float32 sum in any order.
+    studies = (
+        ("swim_edges", SwimConfig(n=SMALL_N, subject=9, loss=0.1),
+         swim_init, swim_round, swim_constants, 110),
+        ("swim_aggregate", SwimConfig(n=SMALL_N, subject=9, loss=0.1,
+                                      delivery="aggregate"),
+         swim_init, swim_round, swim_constants, 110),
+        ("lifeguard_edges", LifeguardConfig(
+            n=SMALL_N, subject=9, fail_at_tick=10, loss=0.1, ack_late=0.25,
+            faults=faults), lifeguard_init, lifeguard_round,
+         lifeguard_constants, 140),
+    )
+    for tag, cfg, init, rnd, constants, steps in studies:
+        on_card = init(cfg, device=dev)
+        card_consts, cpu_consts = constants(cfg, dev), constants(cfg, "cpu")
+        key = PRNGKey(3, device=dev)
+        flipped = 0
+        for t in range(steps):
+            k = fold_in(key, t)
+            before = to_cpu(on_card)
+            want = rnd(before, k.cpu(), cfg, cpu_consts)
+            on_card = rnd(on_card, k, cfg, card_consts)
+            skip = None
+            if cfg.delivery == "aggregate":
+                skip = _aggregate_flips(cfg, before, k)
+                flipped += int(skip.sum())
+            diff = state_diff(want, to_cpu(on_card), skip)
+            check(not diff, f"{tag} tick {t}: {diff} CUDA != CPU")
+        check(int((on_card.view == 2).sum()) > 0,
+              f"{tag}: no dead declaration in {steps} ticks")
+        log(f"{tag}: CUDA == CPU, every field on every tick, {steps} ticks "
+            f"at n={SMALL_N}" + (f", {flipped} near-threshold receivers"
+                                 if cfg.delivery == "aggregate" else ""))
+    small = degraded1m(seed=0, n=SMALL_N, steps=20)  # default device: CUDA
+    check(small["n"] == SMALL_N and small["ticks"] == 20, "degraded1m dict")
+    log("degraded1m(n=4096, steps=20) on the default device: "
+        + json.dumps(small))
+
+
 def main() -> int:
     import torch
 
@@ -317,6 +568,9 @@ def main() -> int:
     ring = phase_ring_kernel(dev)
     phase_threefry(dev)
     ring["launches"] = phase_slice(dev, card)
+    phase_swim(dev, card)
+    phase_lifeguard(dev, card)
+    phase_small_parity(dev)
     log(card)
     print(json.dumps({"kernels": [ring]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,16 +11,28 @@ Layout (mirrors the JAX package):
   - ``protocol`` -- timing profiles and formulas.
   - ``ops``      -- threefry, owned sampling, delivery scatters, and the
     ring-exchange CUDA kernel (``csrc/ring_exchange.cu``).
-  - ``models``   -- the event broadcast.
+  - ``models``   -- the event broadcast, SWIM failure detection and the
+    Lifeguard health layer.
   - ``parallel`` -- D logical shards on one device, the outbox router.
-  - ``sim``      -- ``run_broadcast`` and its report.
+  - ``sim``      -- ``run_broadcast``, ``run_swim``, ``run_lifeguard``,
+    fault schedules, reports, and the BASELINE presets ``suspect1m`` and
+    ``degraded1m`` (``sim.scenarios``).
   - ``convert``  -- numpy bridges for state and keys.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
-from consul_tpu_torch.models import BroadcastConfig
+from consul_tpu_torch.models import BroadcastConfig, LifeguardConfig, SwimConfig
 from consul_tpu_torch.parallel import make_mesh, mesh_for
-from consul_tpu_torch.sim import run_broadcast
+from consul_tpu_torch.sim import run_broadcast, run_lifeguard, run_swim
 
-__all__ = ["BroadcastConfig", "make_mesh", "mesh_for", "run_broadcast"]
+__all__ = [
+    "BroadcastConfig",
+    "LifeguardConfig",
+    "SwimConfig",
+    "make_mesh",
+    "mesh_for",
+    "run_broadcast",
+    "run_lifeguard",
+    "run_swim",
+]

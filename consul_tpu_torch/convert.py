@@ -22,12 +22,13 @@ def key_from_numpy(key, device="cpu") -> torch.Tensor:
     return torch.from_numpy(k.astype(np.int64)).to(device)
 
 
-def state_from_numpy(state, device="cpu") -> BroadcastState:
-    """A ``BroadcastState`` of numpy arrays (the JAX state through
-    ``np.asarray``) as the port's state on ``device``, dtype for dtype."""
-    return BroadcastState(*(
+def state_from_numpy(state, device="cpu", state_cls=BroadcastState):
+    """A state NamedTuple of numpy arrays (the JAX state through
+    ``np.asarray``) as the port's ``state_cls`` on ``device``, leaf for
+    leaf and dtype for dtype; 0-d leaves (``tick``) stay 0-dim."""
+    return state_cls(*(
         torch.from_numpy(np.array(getattr(state, name), copy=True)).to(device)
-        for name in BroadcastState._fields
+        for name in state_cls._fields
     ))
 
 

@@ -16,3 +16,15 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: pass device='cpu' to run the port on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` as a 0-dim (or, for a tensor, same-shape) ``dtype`` tensor on
+    ``device``, with no wait on the device.
+
+    ``torch.as_tensor(3.0, device="cuda")`` builds the value on the host
+    and copies it with a stream synchronisation; ``torch.full`` fills it
+    in on the device instead.  A tensor is only cast and moved."""
+    if isinstance(x, (bool, int, float)):
+        return torch.full((), x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)

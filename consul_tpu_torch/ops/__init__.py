@@ -17,6 +17,8 @@ from consul_tpu_torch.ops.sampling import (
     poissonized_arrivals_owned,
     sample_peers,
     sample_peers_owned,
+    sample_probe_targets,
+    sample_probe_targets_owned,
 )
 from consul_tpu_torch.ops.scatter import deliver_max, deliver_or
 from consul_tpu_torch.ops.threefry import (
@@ -49,6 +51,8 @@ __all__ = [
     "ring_exchange_plain",
     "sample_peers",
     "sample_peers_owned",
+    "sample_probe_targets",
+    "sample_probe_targets_owned",
     "split",
     "threefry2x32",
     "uniform",

@@ -14,11 +14,12 @@ from __future__ import annotations
 
 import torch
 
+from consul_tpu_torch.device import device_scalar
 from consul_tpu_torch.ops.threefry import fold_in, randint, uniform
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return device_scalar(x, torch.float32, device)
 
 
 def owned_keys(key: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -55,6 +56,20 @@ def sample_peers(key: torch.Tensor, n: int, fanout: int) -> torch.Tensor:
     """:func:`sample_peers_owned` over ``arange(n)``: int32 ``[n, fanout]``."""
     ids = torch.arange(n, dtype=torch.int32, device=key.device)
     return sample_peers_owned(key, ids, n, fanout)
+
+
+def sample_probe_targets_owned(key: torch.Tensor, ids: torch.Tensor,
+                               n: int) -> torch.Tensor:
+    """One probe target per owned node per probe round (memberlist probes
+    one node per ProbeInterval, state.go:214-256), uniform over the other
+    n-1 nodes: int32 ``ids.shape`` of global ids."""
+    return sample_peers_owned(key, ids, n, 1)[..., 0]
+
+
+def sample_probe_targets(key: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`sample_probe_targets_owned` over ``arange(n)``: int32 ``[n]``."""
+    ids = torch.arange(n, dtype=torch.int32, device=key.device)
+    return sample_probe_targets_owned(key, ids, n)
 
 
 def bernoulli_mask_owned(key: torch.Tensor, ids: torch.Tensor, shape: tuple,

@@ -28,6 +28,8 @@ import math
 
 import torch
 
+from consul_tpu_torch.device import device_scalar
+
 MASK32 = 0xFFFFFFFF
 _KS_PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -35,7 +37,7 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 def _as_u32(x, device) -> torch.Tensor:
     """Python int or integer tensor -> int64 tensor of its uint32 bits."""
-    return torch.as_tensor(x, dtype=torch.int64, device=device) & MASK32
+    return device_scalar(x, torch.int64, device) & MASK32
 
 
 def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
@@ -127,8 +129,8 @@ def randint(key: torch.Tensor, shape: tuple, minval, maxval) -> torch.Tensor:
     sum wrapping at 32 bits.  ``minval`` and ``maxval`` are ints or
     int tensors that broadcast against ``[..., *shape]``."""
     dev = key.device
-    minval = torch.as_tensor(minval, dtype=torch.int64, device=dev)
-    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    minval = device_scalar(minval, torch.int64, dev)
+    maxval = device_scalar(maxval, torch.int64, dev)
     out_of_range = maxval > 2 ** 31 - 1
     minval = _clip_int32(minval)
     maxval = _clip_int32(maxval)

@@ -1,6 +1,14 @@
 """Protocol ground truth: the timing profiles and formulas the port uses."""
 
-from consul_tpu_torch.protocol.formulas import retransmit_limit
+from consul_tpu_torch.protocol.formulas import (
+    awareness_clamp,
+    awareness_probe_delta,
+    awareness_scaled_timeout,
+    remaining_suspicion_timeout,
+    retransmit_limit,
+    suspicion_timeout,
+    suspicion_timeout_bounds,
+)
 from consul_tpu_torch.protocol.profiles import (
     LAN,
     LOCAL,
@@ -15,5 +23,11 @@ __all__ = [
     "LOCAL",
     "PROFILES",
     "WAN",
+    "awareness_clamp",
+    "awareness_probe_delta",
+    "awareness_scaled_timeout",
+    "remaining_suspicion_timeout",
     "retransmit_limit",
+    "suspicion_timeout",
+    "suspicion_timeout_bounds",
 ]

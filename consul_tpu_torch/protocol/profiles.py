@@ -21,9 +21,19 @@ class GossipProfile:
     probe_timeout_ms: int         # config.go:288 (LAN 500ms), :320 (WAN 3s), :356
     indirect_checks: int          # config.go:283 (3), :352 (local 1)
     suspicion_mult: int           # config.go:285 (LAN 4, WAN 6, local 3)
+    suspicion_max_timeout_mult: int  # config.go:286 (6)
+    awareness_max_multiplier: int    # config.go: AwarenessMaxMultiplier (8)
     gossip_interval_ms: int       # config.go:293 (LAN 200ms), :322 (WAN 500ms), :358
     gossip_nodes: int             # config.go:294 (LAN 3, WAN 4, local 3)
     retransmit_mult: int          # config.go:284 (4, local 2)
+
+    @property
+    def probe_interval_ticks(self) -> int:
+        return max(1, round(self.probe_interval_ms / self.gossip_interval_ms))
+
+    @property
+    def probe_timeout_ticks(self) -> int:
+        return max(1, round(self.probe_timeout_ms / self.gossip_interval_ms))
 
 
 LAN = GossipProfile(
@@ -32,6 +42,8 @@ LAN = GossipProfile(
     probe_timeout_ms=500,
     indirect_checks=3,
     suspicion_mult=4,
+    suspicion_max_timeout_mult=6,
+    awareness_max_multiplier=8,
     gossip_interval_ms=200,
     gossip_nodes=3,
     retransmit_mult=4,
@@ -43,6 +55,8 @@ WAN = GossipProfile(
     probe_timeout_ms=3000,
     indirect_checks=3,
     suspicion_mult=6,
+    suspicion_max_timeout_mult=6,
+    awareness_max_multiplier=8,
     gossip_interval_ms=500,
     gossip_nodes=4,
     retransmit_mult=4,
@@ -54,6 +68,8 @@ LOCAL = GossipProfile(
     probe_timeout_ms=200,
     indirect_checks=1,
     suspicion_mult=3,
+    suspicion_max_timeout_mult=6,
+    awareness_max_multiplier=8,
     gossip_interval_ms=100,
     gossip_nodes=3,
     retransmit_mult=2,

@@ -1,11 +1,41 @@
-"""Study engine and reports."""
+"""Study engine, fault schedules and reports."""
 
-from consul_tpu_torch.sim.engine import broadcast_scan, run_broadcast
-from consul_tpu_torch.sim.metrics import BroadcastReport, time_to_fraction
+from consul_tpu_torch.sim.engine import (
+    broadcast_scan,
+    lifeguard_scan,
+    run_broadcast,
+    run_lifeguard,
+    run_swim,
+    swim_scan,
+)
+from consul_tpu_torch.sim.faults import (
+    ChurnWindow,
+    DegradedSet,
+    FaultSchedule,
+    LossRamp,
+    Partition,
+)
+from consul_tpu_torch.sim.metrics import (
+    BroadcastReport,
+    FalsePositiveReport,
+    SwimReport,
+    time_to_fraction,
+)
 
 __all__ = [
     "BroadcastReport",
+    "ChurnWindow",
+    "DegradedSet",
+    "FalsePositiveReport",
+    "FaultSchedule",
+    "LossRamp",
+    "Partition",
+    "SwimReport",
     "broadcast_scan",
+    "lifeguard_scan",
     "run_broadcast",
+    "run_lifeguard",
+    "run_swim",
+    "swim_scan",
     "time_to_fraction",
 ]

@@ -1,10 +1,12 @@
 """The study engine: tick loops over the round functions, timed on the device.
 
-The port of the broadcast path of ``consul_tpu/sim/engine.py``.  Round
+The port of the broadcast, SWIM and Lifeguard paths of
+``consul_tpu/sim/engine.py``.  Round
 keys are counter-based as in the reference: round ``t`` draws from
 ``fold_in(scan_key, t)``, so trajectories are prefix-stable in ``steps``
 and the sharded twin stays bit-equal at D == 1.  ``lax.scan`` becomes a
-Python loop; each tick's counter stays on the device until the end.
+Python loop; each tick's counters go into preallocated device tensors
+and stay there until the end.
 """
 
 from __future__ import annotations
@@ -19,9 +21,21 @@ from consul_tpu_torch.models.broadcast import (
     broadcast_init,
     broadcast_round,
 )
+from consul_tpu_torch.models.swim import (
+    VIEW_DEAD,
+    VIEW_SUSPECT,
+    SwimConfig,
+    swim_constants,
+    swim_init,
+    swim_round,
+)
 from consul_tpu_torch.ops import PRNGKey, fold_in
 from consul_tpu_torch.parallel.shard import sharded_broadcast_scan
-from consul_tpu_torch.sim.metrics import BroadcastReport
+from consul_tpu_torch.sim.metrics import (
+    BroadcastReport,
+    FalsePositiveReport,
+    SwimReport,
+)
 
 
 def broadcast_scan(state, key: torch.Tensor, cfg: BroadcastConfig,
@@ -32,6 +46,62 @@ def broadcast_scan(state, key: torch.Tensor, cfg: BroadcastConfig,
         state = broadcast_round(state, fold_in(key, t), cfg)
         infected[t] = torch.sum(state.knows, dtype=torch.int32)
     return state, infected
+
+
+def _count(view: torch.Tensor, value: int) -> torch.Tensor:
+    return torch.sum(view == value, dtype=torch.int32)
+
+
+def swim_scan(state, key: torch.Tensor, cfg: SwimConfig, steps: int):
+    """Run ``steps`` ticks; returns (final_state, (suspecting[steps],
+    dead_known[steps]))."""
+    dev = key.device
+    consts = swim_constants(cfg, dev)
+    suspecting = torch.empty(steps, dtype=torch.int32, device=dev)
+    dead_known = torch.empty(steps, dtype=torch.int32, device=dev)
+    for t in range(steps):
+        state = swim_round(state, fold_in(key, t), cfg, consts)
+        suspecting[t] = _count(state.view, VIEW_SUSPECT)
+        dead_known[t] = _count(state.view, VIEW_DEAD)
+    return state, (suspecting, dead_known)
+
+
+def lifeguard_scan(state, key: torch.Tensor, cfg, steps: int):
+    """Run ``steps`` fault-injected Lifeguard ticks; returns (final_state,
+    (suspecting, dead_known, fp_events, refutes, mean_awareness)).
+
+    ``fp_events`` diffs each tick's state against the one before it
+    (fresh ALIVE->SUSPECT views while the subject is actually alive),
+    which is sound because a round never writes into its input."""
+    # Imported at call time: models.lifeguard depends on sim.faults, so
+    # a module-level import here would close an import cycle through
+    # the package __init__s.
+    from consul_tpu_torch.models.lifeguard import (
+        lifeguard_constants,
+        lifeguard_round,
+        mean_f32,
+    )
+
+    dev = key.device
+    consts = lifeguard_constants(cfg, dev)
+    outs = tuple(torch.empty(steps, dtype=torch.int32, device=dev)
+                 for _ in range(4))
+    suspecting, dead_known, fp_events, refutes = outs
+    mean_awareness = torch.empty(steps, dtype=torch.float32, device=dev)
+    for t in range(steps):
+        nxt = lifeguard_round(state, fold_in(key, t), cfg, consts)
+        newly_suspect = torch.sum(
+            (nxt.view == VIEW_SUSPECT) & (state.view != VIEW_SUSPECT),
+            dtype=torch.int32,
+        )
+        subject_live = (state.tick < cfg.fail_at_tick) | cfg.subject_alive
+        suspecting[t] = _count(nxt.view, VIEW_SUSPECT)
+        dead_known[t] = _count(nxt.view, VIEW_DEAD)
+        fp_events[t] = torch.where(subject_live, newly_suspect, 0)
+        refutes[t] = nxt.subject_inc - state.subject_inc
+        mean_awareness[t] = mean_f32(nxt.awareness)
+        state = nxt
+    return state, (*outs, mean_awareness)
 
 
 def _sync(device: torch.device) -> None:
@@ -119,5 +189,68 @@ def run_broadcast(
         infected=out[0],
         wall_s=wall,
         overflow=int(out[1]) if mesh is not None else None,
+        device=_device_name(dev),
+    )
+
+
+def run_swim(
+    cfg: SwimConfig,
+    steps: int,
+    seed: int = 0,
+    warmup: bool = True,
+    device=None,
+) -> SwimReport:
+    """One failure-detection study.  Runs on CUDA unless ``device`` says
+    otherwise; with ``warmup`` the study runs once untimed first."""
+    dev = resolve_device(device)
+    _, (sus, dead), wall = _timed(
+        lambda: swim_init(cfg, device=dev),
+        lambda st, k: swim_scan(st, k, cfg, steps),
+        PRNGKey(seed, device=dev), dev, warmup,
+    )
+    return SwimReport(
+        n=cfg.n,
+        ticks=steps,
+        tick_ms=cfg.profile.gossip_interval_ms,
+        probe_interval_ms=cfg.profile.probe_interval_ms,
+        suspecting=sus,
+        dead_known=dead,
+        wall_s=wall,
+        device=_device_name(dev),
+    )
+
+
+def run_lifeguard(
+    cfg,
+    steps: int,
+    seed: int = 0,
+    warmup: bool = True,
+    device=None,
+) -> FalsePositiveReport:
+    """Fault-injected Lifeguard study (``cfg``: a LifeguardConfig): the
+    accuracy (false-positive) workload, with :func:`run_swim`'s device and
+    timing contract."""
+    from consul_tpu_torch.models.lifeguard import lifeguard_init
+
+    dev = resolve_device(device)
+    _, (sus, dead, fp, refutes, aware), wall = _timed(
+        lambda: lifeguard_init(cfg, device=dev),
+        lambda st, k: lifeguard_scan(st, k, cfg, steps),
+        PRNGKey(seed, device=dev), dev, warmup,
+    )
+    return FalsePositiveReport(
+        n=cfg.n,
+        ticks=steps,
+        tick_ms=cfg.profile.gossip_interval_ms,
+        probe_interval_ms=cfg.profile.probe_interval_ms,
+        lifeguard=cfg.lifeguard,
+        subject_alive=cfg.subject_alive,
+        fail_at_tick=cfg.fail_at_tick,
+        suspecting=sus,
+        dead_known=dead,
+        fp_events=fp,
+        refutes=refutes,
+        mean_awareness=aware,
+        wall_s=wall,
         device=_device_name(dev),
     )

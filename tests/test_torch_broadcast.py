@@ -22,6 +22,9 @@ import torch
 from consul_tpu.models.broadcast import BroadcastConfig as JConfig
 from consul_tpu.models.broadcast import broadcast_init as j_init
 from consul_tpu.models.broadcast import broadcast_round as j_round
+from consul_tpu.models.swim import SwimConfig as JSwimConfig
+from consul_tpu.models.swim import swim_init as j_swim_init
+from consul_tpu.models.swim import swim_round as j_swim_round
 from consul_tpu.ops.sampling import owned_uniform as j_owned_uniform
 from consul_tpu.parallel import make_mesh as j_make_mesh
 from consul_tpu.parallel.shard import (
@@ -34,7 +37,12 @@ from consul_tpu_torch.convert import (
     state_from_numpy,
     state_to_numpy,
 )
-from consul_tpu_torch.models import BroadcastConfig, broadcast_round
+from consul_tpu_torch.models import (
+    BroadcastConfig,
+    BroadcastState,
+    SwimState,
+    broadcast_round,
+)
 from consul_tpu_torch.ops import arrival_rate, fold_in, owned_uniform, split
 from consul_tpu_torch.parallel import block_size, make_mesh, mesh_for
 from consul_tpu_torch.parallel import sharded_broadcast_scan
@@ -232,9 +240,32 @@ def test_mesh_shapes():
     assert mesh_for(2, device="cpu").device == torch.device("cpu")
 
 
-def test_state_round_trip():
-    jcfg, _ = _cfgs("edges")
-    init = _jax_trajectory("edges")[5]
-    back = state_to_numpy(state_from_numpy(init))
-    _assert_state_equal(init, back)
-    assert back.knows.dtype == np.bool_ and back.tx_left.dtype == np.int32
+def _swim_state_np():
+    """A SWIM state some ticks into a crash study, as numpy."""
+    cfg = JSwimConfig(n=64, subject=3, loss=0.2)
+    state = j_swim_init(cfg)
+    for t in range(12):
+        state = j_swim_round(state, jax.random.fold_in(
+            jax.random.PRNGKey(SEED), t), cfg)
+    return _np(state)
+
+
+@pytest.mark.parametrize("state_cls", [BroadcastState, SwimState],
+                         ids=["broadcast", "swim"])
+def test_state_round_trip(state_cls):
+    if state_cls is BroadcastState:
+        init = _jax_trajectory("edges")[5]
+        back = state_to_numpy(state_from_numpy(init))
+    else:
+        init = _swim_state_np()
+        back = state_to_numpy(state_from_numpy(init, state_cls=state_cls))
+    assert type(back) is state_cls
+    for name in state_cls._fields:
+        want, got = np.asarray(getattr(init, name)), getattr(back, name)
+        assert want.dtype == got.dtype and want.shape == got.shape, name
+        np.testing.assert_array_equal(want, got, err_msg=name)
+    if state_cls is SwimState:
+        assert back.tick.shape == () and int(back.tick) == 12
+        assert back.subject_inc.shape == ()
+    else:
+        assert back.knows.dtype == np.bool_ and back.tx_left.dtype == np.int32

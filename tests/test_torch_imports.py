@@ -16,9 +16,27 @@ FORBIDDEN = ("jax", "jaxlib", "consul_tpu")
 MODULES = (
     "consul_tpu_torch", "consul_tpu_torch.convert", "consul_tpu_torch.ops",
     "consul_tpu_torch.ops.ring_exchange", "consul_tpu_torch.models",
+    "consul_tpu_torch.models.swim", "consul_tpu_torch.models.lifeguard",
     "consul_tpu_torch.parallel", "consul_tpu_torch.protocol",
-    "consul_tpu_torch.sim", "chip_smoke",
+    "consul_tpu_torch.sim", "consul_tpu_torch.sim.faults",
+    "consul_tpu_torch.sim.scenarios", "consul_tpu_torch.sim.breakdown",
+    "chip_smoke",
 )
+
+
+def test_every_port_module_is_checked():
+    """Each module of the package is imported by the subprocess test."""
+    names = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "consul_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py"
+    }
+    imported = {m for m in MODULES if m != "chip_smoke"}
+    missing = sorted(
+        m for m in names
+        if m not in imported and m.rsplit(".", 1)[0] not in imported
+    )
+    assert not missing, f"not in MODULES: {missing}"
 
 
 def test_import_loads_no_jax():

@@ -9,7 +9,12 @@ def ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                   - np.asarray(b, np.float32).view(np.int32))
 
 
-def check_arrivals(u_j, u_t, thr_j, thr_t, lam, got_j, got_t) -> int:
+def _threshold64(lam) -> np.ndarray:
+    return (-np.expm1(-np.asarray(lam, np.float64))).astype(np.float32)
+
+
+def check_arrivals(u_j, u_t, thr_j, thr_t, lam, got_j, got_t,
+                   lam_t=None) -> int:
     """Aggregate delivery: ``got = u < 1 - exp(-lam)`` in both packages.
 
     The uniforms must be bit-equal.  The thresholds are not: XLA's CPU
@@ -17,11 +22,13 @@ def check_arrivals(u_j, u_t, thr_j, thr_t, lam, got_j, got_t) -> int:
     jax 0.9.0 over lam in [0, 10)), PyTorch's within 1.  So the port's
     threshold is held within 1 ulp of float64, the reference's within 5,
     and a receiver may differ only where the shared uniform lies between
-    the two thresholds.  Returns how many receivers differ."""
+    the two thresholds.  ``lam`` is the reference's rate; ``lam_t``, where
+    the port's differs from it, the port's.  Returns how many receivers
+    differ."""
     np.testing.assert_array_equal(u_j.view(np.uint32), u_t.view(np.uint32))
-    truth = (-np.expm1(-lam.astype(np.float64))).astype(np.float32)
-    assert ulps(thr_t, truth).max() <= 1
-    assert ulps(thr_j, truth).max() <= 5
+    lam_t = lam if lam_t is None else lam_t
+    assert ulps(thr_t, _threshold64(lam_t)).max() <= 1
+    assert ulps(thr_j, _threshold64(lam)).max() <= 5
     np.testing.assert_array_equal(got_j, u_j < thr_j)
     np.testing.assert_array_equal(got_t, u_t < thr_t)
     flip = got_j != got_t
