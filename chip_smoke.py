@@ -28,7 +28,20 @@ Run from the root of the repository.  Phases, each fatal on failure:
      Lifeguard A/B at 1M nodes for 160 ticks, Lifeguard on and off; and
      CUDA held against the CPU at n=4096 (SWIM edges and Lifeguard edges
      with every fault primitive field for field on every tick, SWIM
-     aggregate by the arrival-threshold rule).
+     aggregate by the arrival-threshold rule);
+  6. the membership slice: the top-K sparse model (K=64, LAN, loss 0.01,
+     subject 42 crashing at tick 5, seed 0) at 100k nodes, a cold
+     detection study of 200 ticks checked for first suspicion, the
+     suspicion minimum, monotone ``dead_known`` and 99% DEAD, then the
+     benchmark's steady-state measure (the converged state, 8 ticks with
+     PRNGKey(1) to warm up, 8 timed with PRNGKey(2)); the same at 1M
+     nodes with a cold study of 60 ticks and the sorted-row invariant at
+     the end; the dense model at 16384 nodes for 30 ticks and the probe1k
+     preset (all ten crashes detected); and every membership round on
+     CUDA held against the CPU, every field with its dtype on every tick
+     (sparse at K < n with amortize on and off, sparse at K == n, dense,
+     and the chunked and row-blocked branches forced on a small study).
+     The ring kernel launches 0 times on this path.
 
 The next-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -66,6 +79,18 @@ SWIM_AGG_STEPS = 450     # bench.py's STEPS for the headline
 SWIM_EDGE_STEPS = 100    # bench.py's STEPS_EDGES
 LIFEGUARD_STEPS = 160    # bench.py's cut of degraded1m's 300 ticks
 SMALL_N = 4096
+# The sparse cold study at 100k: LAN's suspicion minimum is 100 ticks
+# there (4 * log10(1e5) * 1 s at 200 ms a tick) and its maximum 600.  The
+# first suspicion is due within 10 probe intervals (50 ticks) of the crash
+# at tick 5, suspicions confirmed twice expire after the minimum, and the
+# DEAD news reaches the rest within a few dozen ticks: 5 + 50 + 100 + 45
+# = 200 ticks.
+SPARSE_N = 100_000
+SPARSE_COLD_100K_STEPS = 200
+SPARSE_COLD_1M_STEPS = 60  # holds the first suspicion, not the DEAD wave
+STEADY_STEPS = 8           # bench.py's steps for the steady-state measure
+DENSE_N = 16384            # the reference's dense@16k registry program
+DENSE_STEPS = 30
 
 
 def log(msg: str) -> None:
@@ -554,6 +579,256 @@ def phase_small_parity(dev) -> None:
         + json.dumps(small))
 
 
+def sparse_cfg(n: int):
+    from consul_tpu_torch import MembershipConfig, SparseMembershipConfig
+    from consul_tpu_torch.protocol import LAN
+
+    return SparseMembershipConfig(
+        MembershipConfig(n=n, loss=0.01, profile=LAN, fail_at=((42, 5),)),
+        k_slots=64)
+
+
+def check_detection(rep, base, tag: str, fail_tick: int = 5) -> dict:
+    """The detection invariants of a crash study of tracked subject #0;
+    returns its first suspicion and DEAD ticks."""
+    sus = np.asarray(rep.suspecting[:, 0], np.int64)
+    dead = np.asarray(rep.dead_known[:, 0], np.int64)
+    check(sus.shape == (rep.ticks,) and dead.shape == (rep.ticks,),
+          f"{tag}: output shapes")
+    first_sus = rep.first_tick(sus)
+    check(first_sus is not None
+          and first_sus + 1 <= fail_tick + 10 * base.probe_interval_ticks,
+          f"{tag}: first suspicion at tick {first_sus}, later than 10 probe "
+          "intervals after the crash")
+    lo, _ = base.suspicion_bounds_ticks
+    first_dead = rep.first_tick(dead)
+    check(first_dead is None or first_dead - first_sus >= lo,
+          f"{tag}: DEAD at tick {first_dead}, {lo} ticks not passed since "
+          f"first suspicion at {first_sus}")
+    check(bool(np.all(np.diff(dead) >= 0)), f"{tag}: dead_known fell")
+    check(bool(np.all(sus + dead <= base.n - 1)),
+          f"{tag}: suspecting + dead_known > n - 1")
+    check(bool(np.all(np.isfinite(rep.known_members))),
+          f"{tag}: known_members not finite")
+    return {"first_suspect_tick": first_sus, "first_dead_tick": first_dead}
+
+
+def rows_sorted(slot_subj) -> bool:
+    """The sorted-row invariant on the card: subjects strictly ascending,
+    empties last, the self slot present in every row."""
+    import torch
+
+    keyed = torch.where(slot_subj < 0, 2 ** 31 - 1, slot_subj)
+    step = keyed[:, 1:] - keyed[:, :-1]
+    ok = bool(((step > 0) | (slot_subj[:, 1:] < 0)).all())
+    ok &= bool((step >= 0).all())
+    rows = torch.arange(slot_subj.shape[0], device=slot_subj.device)
+    return ok and bool((slot_subj == rows[:, None].int()).any(dim=1).all())
+
+
+def membership_line(tag: str, card: str, **row) -> None:
+    log("study " + json.dumps({"run": tag, **row, "card": card}))
+
+
+def sparse_steady(cfg, dev, card: str, tag: str):
+    """bench.py's steady-state measure: the converged state, 8 ticks with
+    PRNGKey(1) to warm up, 8 timed with PRNGKey(2).  The dead subject
+    stays DEAD in every live row; ``overflow`` is reported, not checked: a
+    false suspicion (a live probe fails with probability 1.2e-6 at loss
+    0.01) may start a wave whose senders outnumber the gossip budget.
+    Returns the final state."""
+    import torch
+
+    from consul_tpu_torch.models.membership_sparse import converged_state
+    from consul_tpu_torch.ops import PRNGKey, host_cond
+    from consul_tpu_torch.sim import sparse_membership_scan
+
+    n = cfg.base.n
+    torch.cuda.reset_peak_memory_stats()
+    st, _ = sparse_membership_scan(converged_state(cfg, 42, device=dev),
+                                   PRNGKey(1, device=dev), cfg, STEADY_STEPS,
+                                   (42,))
+    torch.cuda.synchronize()
+    syncs = host_cond.syncs
+    t0 = time.perf_counter()
+    st, outs = sparse_membership_scan(st, PRNGKey(2, device=dev), cfg,
+                                      STEADY_STEPS, (42,))
+    torch.cuda.synchronize()
+    dead = outs[1].cpu().numpy()
+    wall = time.perf_counter() - t0
+    overflow, forgotten = int(st.overflow), int(st.forgotten)
+    membership_line(
+        tag, card, ticks=STEADY_STEPS, rounds_per_sec=STEADY_STEPS / wall,
+        wall_s=wall, overflow=overflow, forgotten=forgotten,
+        dead_known_final=int(dead[-1, 0]),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        host_syncs_per_tick=(host_cond.syncs - syncs) / STEADY_STEPS)
+    check(bool(np.all(dead[:, 0] == n - 1)),
+          f"{tag}: the converged state lost a DEAD view")
+    check(rows_sorted(st.slot_subj), f"{tag}: sorted-row invariant")
+    return st
+
+
+def phase_membership(dev, card: str) -> None:
+    """The membership slice's studies.  The path runs no kernel of the
+    port's own: the ring kernel's count, zeroed before each run, must read
+    0 after it."""
+    import torch
+
+    from consul_tpu_torch import MembershipConfig, run_membership
+    from consul_tpu_torch import run_membership_sparse
+    from consul_tpu_torch.ops import host_cond, ring_exchange
+    from consul_tpu_torch.protocol import LAN
+    from consul_tpu_torch.sim.scenarios import probe1k
+
+    launches = 0
+
+    def sparse_cold(n: int, steps: int, tag: str):
+        nonlocal launches
+        cfg = sparse_cfg(n)
+        run_membership_sparse(cfg, 3, seed=0, track=(42,), warmup=False,
+                              device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        ring_exchange.launches = 0
+        syncs = host_cond.syncs
+        rep, overflow = run_membership_sparse(cfg, steps, seed=0,
+                                              track=(42,), warmup=False,
+                                              device=dev)
+        launches += ring_exchange.launches
+        per_tick = (host_cond.syncs - syncs) / steps
+        det = check_detection(rep, cfg.base, tag)
+        live = n - 1
+        dead = rep.dead_known[:, 0]
+        hit = np.nonzero(dead >= 0.99 * live)[0]
+        row = dict(
+            ticks=steps, rounds_per_sec=rep.rounds_per_sec, wall_s=rep.wall_s,
+            overflow=overflow, forgotten=rep.forgotten, **det,
+            dead99_tick=int(hit[0]) if hit.size else None,
+            dead_known_final=int(dead[-1]),
+            suspect_cells_final=int(rep.suspect_cells[-1]),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            host_syncs_per_tick=per_tick, device=rep.device)
+        membership_line(tag, card, **row)
+        check(per_tick <= 2, f"{tag}: {per_tick} host syncs a tick")
+        return cfg, rep, row
+
+    cfg100k, _, row = sparse_cold(SPARSE_N, SPARSE_COLD_100K_STEPS,
+                                  "membership_sparse_100k_cold")
+    check(row["dead99_tick"] is not None,
+          "sparse 100k: 99% of live observers never held 42 DEAD")
+    sparse_steady(cfg100k, dev, card, "membership_sparse_100k_steady")
+
+    cfg1m, _, _ = sparse_cold(N_1M, SPARSE_COLD_1M_STEPS,
+                              "membership_sparse_1m_cold")
+    st = sparse_steady(cfg1m, dev, card, "membership_sparse_1m_steady")
+    del st
+
+    dense = MembershipConfig(n=DENSE_N, loss=0.01, profile=LAN,
+                             fail_at=((42, 5),))
+    run_membership(dense, 2, seed=0, track=(42,), warmup=False, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ring_exchange.launches = 0
+    rep = run_membership(dense, DENSE_STEPS, seed=0, track=(42,),
+                         warmup=False, device=dev)
+    launches += ring_exchange.launches
+    det = check_detection(rep, dense, "membership_dense_16k")
+    membership_line(
+        "membership_dense_16k", card, ticks=DENSE_STEPS,
+        rounds_per_sec=rep.rounds_per_sec, wall_s=rep.wall_s, overflow=None,
+        forgotten=None, **det, dead_known_final=int(rep.dead_known[-1, 0]),
+        suspect_cells_final=int(rep.suspect_cells[-1]),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        host_syncs_per_tick=0.0, device=rep.device)
+    check(int(rep.known_members[0]) > 0, "dense 16k: known_members")
+
+    ring_exchange.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    summary = probe1k(seed=0, device=dev)
+    launches += ring_exchange.launches
+    membership_line("probe1k", card, **summary, overflow=None,
+                    forgotten=None, host_syncs_per_tick=0.0,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    check(summary["all_detected"], "probe1k: a crash went undetected")
+    log(f"ring kernel launches on the membership path: {launches}")
+    check(launches == 0, "ring kernel launched on the membership path")
+
+
+def _parity_run(tag, init, rnd, consts, cfg, dev, steps: int, seed: int,
+                check_end=None) -> None:
+    """Step the round on the card and on the CPU from the same state and
+    key, every field compared with its dtype after every tick."""
+    from consul_tpu_torch.ops import PRNGKey, fold_in
+
+    on_card = init(cfg, device=dev)
+    card_consts, cpu_consts = consts(cfg, dev), consts(cfg, "cpu")
+    key = PRNGKey(seed, device=dev)
+    for t in range(steps):
+        k = fold_in(key, t)
+        want = rnd(to_cpu(on_card), k.cpu(), cfg, cpu_consts)
+        on_card = rnd(on_card, k, cfg, card_consts)
+        diff = state_diff(want, to_cpu(on_card))
+        check(not diff, f"{tag} tick {t}: {diff} CUDA != CPU")
+    if check_end is not None:
+        check_end(on_card)
+    log(f"{tag}: CUDA == CPU, every field on every tick, {steps} ticks")
+
+
+def phase_membership_parity(dev) -> None:
+    """Every membership round on the card against the CPU."""
+    import dataclasses
+
+    from consul_tpu_torch import MembershipConfig, SparseMembershipConfig
+    from consul_tpu_torch.models import (
+        membership_init,
+        membership_round,
+        sparse_membership_init,
+        sparse_membership_round,
+    )
+    from consul_tpu_torch.models import membership_sparse as ms
+    from consul_tpu_torch.models.membership import membership_constants
+    from consul_tpu_torch.ops import sortmerge
+    from consul_tpu_torch.protocol import LAN
+
+    churn = MembershipConfig(n=SMALL_N, loss=0.2, profile=LAN,
+                             fail_at=((5, 3), (100, 5), (2000, 8)),
+                             leave_at=((77, 10),))
+
+    def pressured(st):
+        check(int(st.overflow) > 0 and int(st.forgotten) > 0,
+              "small sparse study: no overflow or no eviction")
+        check(rows_sorted(st.slot_subj), "small sparse: sorted rows")
+
+    for amortize in (True, False):
+        _parity_run(f"sparse_k16_n{SMALL_N}_amortize_{amortize}",
+                    sparse_membership_init, sparse_membership_round,
+                    ms.sparse_constants,
+                    SparseMembershipConfig(churn, k_slots=16,
+                                           amortize=amortize),
+                    dev, 40, 3, pressured)
+    full = MembershipConfig(n=256, loss=0.2, profile=LAN,
+                            fail_at=((5, 3), (17, 8)), leave_at=((30, 12),))
+    _parity_run("sparse_k_eq_n_256", sparse_membership_init,
+                sparse_membership_round, ms.sparse_constants,
+                SparseMembershipConfig(full, k_slots=256), dev, 40, 7)
+    _parity_run("dense_512", membership_init, membership_round,
+                membership_constants,
+                dataclasses.replace(full, n=512, join_at=((400, 6),)),
+                dev, 40, 7)
+    # The >= 2M-node branches on a small study: lower the thresholds that
+    # select them, then put them back.
+    saved = (sortmerge._BLOCK_ROWS, ms._CHUNK_A, ms._CHUNK_TARGET)
+    sortmerge._BLOCK_ROWS, ms._CHUNK_A, ms._CHUNK_TARGET = (
+        1024, 1 << 14, 1 << 14)
+    cfg = SparseMembershipConfig(churn, k_slots=16)
+    check(ms.arrival_count(cfg) > ms._CHUNK_A
+          and sortmerge._row_blocks(SMALL_N) == (4, 1024),
+          "chunked/blocked branches not selected")
+    _parity_run(f"sparse_chunked_blocked_n{SMALL_N}",
+                sparse_membership_init, sparse_membership_round,
+                ms.sparse_constants, cfg, dev, 20, 5)
+    sortmerge._BLOCK_ROWS, ms._CHUNK_A, ms._CHUNK_TARGET = saved
+
+
 def main() -> int:
     import torch
 
@@ -562,6 +837,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     card = phase_card()
@@ -570,7 +846,10 @@ def main() -> int:
     ring["launches"] = phase_slice(dev, card)
     phase_swim(dev, card)
     phase_lifeguard(dev, card)
+    phase_membership(dev, card)
+    phase_membership_parity(dev)
     phase_small_parity(dev)
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     print(json.dumps({"kernels": [ring]}))
     print(json.dumps({"ok": True, "device": {

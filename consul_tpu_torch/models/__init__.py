@@ -12,6 +12,19 @@ from consul_tpu_torch.models.lifeguard import (
     lifeguard_init,
     lifeguard_round,
 )
+from consul_tpu_torch.models.membership import (
+    MembershipConfig,
+    MembershipState,
+    membership_init,
+    membership_round,
+)
+from consul_tpu_torch.models.membership_sparse import (
+    SparseMembershipConfig,
+    SparseMembershipState,
+    densify,
+    sparse_membership_init,
+    sparse_membership_round,
+)
 from consul_tpu_torch.models.swim import (
     SwimConfig,
     SwimState,
@@ -24,12 +37,21 @@ __all__ = [
     "BroadcastState",
     "LifeguardConfig",
     "LifeguardState",
+    "MembershipConfig",
+    "MembershipState",
+    "SparseMembershipConfig",
+    "SparseMembershipState",
     "SwimConfig",
     "SwimState",
     "broadcast_init",
     "broadcast_round",
+    "densify",
     "lifeguard_init",
     "lifeguard_round",
+    "membership_init",
+    "membership_round",
+    "sparse_membership_init",
+    "sparse_membership_round",
     "swim_init",
     "swim_round",
 ]

@@ -154,7 +154,7 @@ def swim_init(cfg: SwimConfig, device=None) -> SwimState:
     )
 
 
-def timeout_table(cfg: SwimConfig) -> torch.Tensor:
+def timeout_table(cfg: SwimConfig, fused: bool = True) -> torch.Tensor:
     """float32[k+1] on the CPU: the total suspicion timeout in ticks after
     0..k confirmations (suspicion.go:86-97 remainingSuspicionTime),
     rounded UP to a tick and floored at the minimum ``lo``.
@@ -165,9 +165,12 @@ def timeout_table(cfg: SwimConfig) -> torch.Tensor:
     ``C = f32(f32(1 / f32(log(k+1))) * f32(hi - lo))``; op-by-op float32
     would declare DEAD one tick early at LOCAL's one confirmation.  The
     fused multiply-add is taken in float64, where the float32 product is
-    exact.  ``confirmations`` only takes the values 0..k, so a round
-    indexes this table on the device and never evaluates a ``log``
-    there: the card's ``logf`` cannot move a dead declaration."""
+    exact.  With ``fused=False`` the product is rounded to float32 before
+    the subtraction: the order in which XLA's constant folder evaluates
+    the expression when ``c`` is a constant ``arange`` (the sparse
+    membership model's table).  ``confirmations`` only takes the values
+    0..k, so a round indexes this table on the device and never evaluates
+    a ``log`` there: the card's ``logf`` cannot move a dead declaration."""
     lo, hi = cfg.suspicion_bounds_ticks
     k = cfg.confirmations_k
     f32 = torch.float32
@@ -178,7 +181,10 @@ def timeout_table(cfg: SwimConfig) -> torch.Tensor:
     inv = 1.0 / torch.full((), math.log(k + 1.0), dtype=f32)
     c = inv * torch.full((), hi - lo, dtype=f32)
     hi32 = torch.full((), hi, dtype=f32)
-    raw = (hi32.double() - log_c.double() * c.double()).to(f32)
+    if fused:
+        raw = (hi32.double() - log_c.double() * c.double()).to(f32)
+    else:
+        raw = hi32 - log_c * c
     return torch.maximum(torch.ceil(raw), lo32)
 
 

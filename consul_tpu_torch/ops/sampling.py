@@ -34,6 +34,26 @@ def owned_uniform(key: torch.Tensor, ids: torch.Tensor,
     return uniform(owned_keys(key, ids), shape)
 
 
+# Values per block of owned_uniform_rows: its int64 threefry temporaries
+# stay near 512 MB each.
+_DRAW_BLOCK = 1 << 26
+
+
+def owned_uniform_rows(key: torch.Tensor, rows: int,
+                       width: int) -> torch.Tensor:
+    """float32 ``[rows, width]``: :func:`owned_uniform` over ``arange(rows)``
+    with draw shape ``(width,)``, generated in row blocks of about
+    ``_DRAW_BLOCK`` values.  Row i is node i's stream whatever the
+    blocking, so the result is the same as one call's."""
+    out = torch.empty((rows, width), dtype=torch.float32, device=key.device)
+    step = max(1, _DRAW_BLOCK // max(width, 1))
+    for start in range(0, rows, step):
+        stop = min(rows, start + step)
+        ids = torch.arange(start, stop, dtype=torch.int32, device=key.device)
+        out[start:stop] = owned_uniform(key, ids, (width,))
+    return out
+
+
 def owned_randint(key: torch.Tensor, ids: torch.Tensor, shape: tuple,
                   minval, maxval) -> torch.Tensor:
     """int32 ``[*ids.shape, *shape]`` uniform integers in [minval, maxval)."""

@@ -26,6 +26,7 @@ class GossipProfile:
     gossip_interval_ms: int       # config.go:293 (LAN 200ms), :322 (WAN 500ms), :358
     gossip_nodes: int             # config.go:294 (LAN 3, WAN 4, local 3)
     retransmit_mult: int          # config.go:284 (4, local 2)
+    push_pull_interval_ms: int    # config.go:287 (LAN 30s, WAN 60s, local 15s)
 
     @property
     def probe_interval_ticks(self) -> int:
@@ -34,6 +35,10 @@ class GossipProfile:
     @property
     def probe_timeout_ticks(self) -> int:
         return max(1, round(self.probe_timeout_ms / self.gossip_interval_ms))
+
+    @property
+    def push_pull_interval_ticks(self) -> int:
+        return max(1, round(self.push_pull_interval_ms / self.gossip_interval_ms))
 
 
 LAN = GossipProfile(
@@ -47,6 +52,7 @@ LAN = GossipProfile(
     gossip_interval_ms=200,
     gossip_nodes=3,
     retransmit_mult=4,
+    push_pull_interval_ms=30_000,
 )
 
 WAN = GossipProfile(
@@ -60,6 +66,7 @@ WAN = GossipProfile(
     gossip_interval_ms=500,
     gossip_nodes=4,
     retransmit_mult=4,
+    push_pull_interval_ms=60_000,
 )
 
 LOCAL = GossipProfile(
@@ -73,6 +80,7 @@ LOCAL = GossipProfile(
     gossip_interval_ms=100,
     gossip_nodes=3,
     retransmit_mult=2,
+    push_pull_interval_ms=15_000,
 )
 
 PROFILES = {"lan": LAN, "wan": WAN, "local": LOCAL}

@@ -3,9 +3,13 @@
 from consul_tpu_torch.sim.engine import (
     broadcast_scan,
     lifeguard_scan,
+    membership_scan,
     run_broadcast,
     run_lifeguard,
+    run_membership,
+    run_membership_sparse,
     run_swim,
+    sparse_membership_scan,
     swim_scan,
 )
 from consul_tpu_torch.sim.faults import (
@@ -18,6 +22,7 @@ from consul_tpu_torch.sim.faults import (
 from consul_tpu_torch.sim.metrics import (
     BroadcastReport,
     FalsePositiveReport,
+    MembershipReport,
     SwimReport,
     time_to_fraction,
 )
@@ -29,13 +34,18 @@ __all__ = [
     "FalsePositiveReport",
     "FaultSchedule",
     "LossRamp",
+    "MembershipReport",
     "Partition",
     "SwimReport",
     "broadcast_scan",
     "lifeguard_scan",
+    "membership_scan",
     "run_broadcast",
     "run_lifeguard",
+    "run_membership",
+    "run_membership_sparse",
     "run_swim",
+    "sparse_membership_scan",
     "swim_scan",
     "time_to_fraction",
 ]

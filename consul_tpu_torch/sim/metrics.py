@@ -1,4 +1,4 @@
-"""Host-side study reports (the slice's copy of ``consul_tpu/sim/metrics.py``)."""
+"""Host-side study reports (the port's copy of ``consul_tpu/sim/metrics.py``)."""
 
 from __future__ import annotations
 
@@ -134,6 +134,63 @@ class FalsePositiveReport:
             "dead_known_final": int(self.dead_known[-1]),
             "mean_awareness_final": float(self.mean_awareness[-1]),
             "time_to_true_dead_ms": self.time_to_true_dead_ms(),
+            "sim_rounds_per_sec": self.rounds_per_sec,
+            "device": self.device,
+        }
+
+
+@dataclasses.dataclass
+class MembershipReport:
+    """Detection curves from a full-membership study, one column per
+    tracked subject."""
+
+    n: int
+    ticks: int
+    tick_ms: float
+    probe_interval_ms: float
+    track: tuple                  # tracked subject ids
+    suspecting: np.ndarray        # int32[ticks, S] -- observers suspecting j
+    dead_known: np.ndarray        # int32[ticks, S]
+    suspect_cells: np.ndarray     # int32[ticks] -- global suspicion pressure
+    known_members: np.ndarray     # [ticks] sum of membership sizes: int32
+    #                               (dense), float32 gauge (sparse)
+    wall_s: float
+    # Sharded runs only (a later slice).
+    overflow: Optional[int] = None
+    device: str = ""              # what the run ran on
+    # Sparse runs only: the final state's count of evicted settled cells.
+    forgotten: Optional[int] = None
+
+    @property
+    def rounds_per_sec(self) -> float:
+        return self.ticks / self.wall_s if self.wall_s > 0 else float("inf")
+
+    def first_tick(self, counts: np.ndarray) -> Optional[int]:
+        return _first_tick(counts)
+
+    def first_detection_ms(self, subject_pos: int) -> Optional[float]:
+        """First tick any observer suspects tracked subject #pos, in ms."""
+        t = _first_tick(self.suspecting[:, subject_pos])
+        return None if t is None else (t + 1) * self.tick_ms
+
+    def dead_converged(self, subject_pos: int,
+                       observers: int) -> Optional[int]:
+        """First tick when ``observers`` observers view the subject DEAD."""
+        hit = np.nonzero(self.dead_known[:, subject_pos] >= observers)[0]
+        return int(hit[0]) if hit.size else None
+
+    def summary(self) -> dict:
+        return {
+            "n": self.n,
+            "ticks": self.ticks,
+            "tick_ms": self.tick_ms,
+            "tracked": list(self.track),
+            "first_suspect_ms": [
+                self.first_detection_ms(i) for i in range(len(self.track))
+            ],
+            "dead_known_final": self.dead_known[-1].tolist(),
+            "suspect_cells_final": int(self.suspect_cells[-1]),
+            "mean_membership_final": float(self.known_members[-1]) / self.n,
             "sim_rounds_per_sec": self.rounds_per_sec,
             "device": self.device,
         }

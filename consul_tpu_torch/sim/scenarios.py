@@ -1,7 +1,9 @@
-"""The BASELINE study presets on the SWIM/Lifeguard path.
+"""The BASELINE study presets of the ported paths.
 
-The part of ``consul_tpu/sim/scenarios.py`` this slice runs:
+The part of ``consul_tpu/sim/scenarios.py`` the port runs:
 
+  probe1k     BASELINE config 2: 1k-node full-membership SWIM, LAN,
+              fanout 3, 10 concurrent crashes (1%) at tick 10
   suspect1m   BASELINE config 4: 1M-node suspicion/dead propagation,
               30% loss, WAN profile, aggregate delivery
   degraded1m  1M-node Lifeguard false-positive study, WAN profile, 2%
@@ -16,9 +18,44 @@ from __future__ import annotations
 
 import dataclasses
 
-from consul_tpu_torch.models import LifeguardConfig, SwimConfig
-from consul_tpu_torch.protocol import WAN
-from consul_tpu_torch.sim.engine import run_lifeguard, run_swim
+import numpy as np
+
+from consul_tpu_torch.models import (
+    LifeguardConfig,
+    MembershipConfig,
+    SwimConfig,
+)
+from consul_tpu_torch.protocol import LAN, WAN
+from consul_tpu_torch.sim.engine import run_lifeguard, run_membership, run_swim
+
+
+def probe1k(seed: int = 0, device=None) -> dict:
+    """BASELINE config 2: 1k nodes, SWIM probe/ack, 1% induced failure: 10
+    concurrent crashes in one full-membership study, interacting through
+    shared gossip bandwidth, confirmations and push/pull (300 ticks)."""
+    failed = tuple(range(0, 1000, 100))  # 10 spread-out subjects
+    cfg = MembershipConfig(
+        n=1000, loss=0.0, profile=LAN, fanout=3,
+        fail_at=tuple((f, 10) for f in failed),
+    )
+    rep = run_membership(cfg, steps=300, seed=seed, track=failed,
+                         warmup=False, device=device)
+    first_sus = [rep.first_detection_ms(i) for i in range(len(failed))]
+    live = cfg.n - len(failed)
+    conv = [rep.dead_converged(i, live) for i in range(len(failed))]
+    return {
+        "scenario": "probe1k",
+        "n": cfg.n,
+        "subjects": len(failed),
+        "mean_first_suspect_ms": float(
+            np.mean([s for s in first_sus if s])
+        ) if any(first_sus) else None,
+        "all_detected": all(c is not None for c in conv),
+        "mean_converged_ms": float(np.mean(
+            [(c + 1) * rep.tick_ms for c in conv if c is not None]
+        )) if any(c is not None for c in conv) else None,
+        "sim_rounds_per_sec": rep.rounds_per_sec,
+    }
 from consul_tpu_torch.sim.faults import DegradedSet, FaultSchedule
 
 

@@ -15,8 +15,11 @@ FORBIDDEN = ("jax", "jaxlib", "consul_tpu")
 
 MODULES = (
     "consul_tpu_torch", "consul_tpu_torch.convert", "consul_tpu_torch.ops",
-    "consul_tpu_torch.ops.ring_exchange", "consul_tpu_torch.models",
+    "consul_tpu_torch.ops.ring_exchange", "consul_tpu_torch.ops.compact",
+    "consul_tpu_torch.ops.sortmerge", "consul_tpu_torch.models",
     "consul_tpu_torch.models.swim", "consul_tpu_torch.models.lifeguard",
+    "consul_tpu_torch.models.membership",
+    "consul_tpu_torch.models.membership_sparse",
     "consul_tpu_torch.parallel", "consul_tpu_torch.protocol",
     "consul_tpu_torch.sim", "consul_tpu_torch.sim.faults",
     "consul_tpu_torch.sim.scenarios", "consul_tpu_torch.sim.breakdown",
