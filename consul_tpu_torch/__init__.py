@@ -13,13 +13,17 @@ Layout (mirrors the JAX package):
     scatters, the sort-merge delivery into sorted slot rows, and the
     ring-exchange CUDA kernel (``csrc/ring_exchange.cu``).
   - ``models``   -- the event broadcast, SWIM failure detection, the
-    Lifeguard health layer, and full-membership SWIM, dense and top-K
-    sparse.
+    Lifeguard health layer, full-membership SWIM (dense and top-K
+    sparse), the two-edge-class multi-DC broadcast and Vivaldi
+    coordinates.
+  - ``geo``      -- the geo/WAN plane: Vivaldi-derived link latencies,
+    bandwidth-capped delayed links with adaptive anti-entropy.
   - ``parallel`` -- D logical shards on one device, the outbox router.
   - ``sim``      -- ``run_broadcast``, ``run_swim``, ``run_lifeguard``,
-    ``run_membership``, ``run_membership_sparse``, fault schedules,
-    reports, and the BASELINE presets ``probe1k``, ``suspect1m`` and
-    ``degraded1m`` (``sim.scenarios``).
+    ``run_membership``, ``run_membership_sparse``, ``run_multidc``,
+    ``run_geo``, fault schedules, reports, and the BASELINE presets
+    ``probe1k``, ``suspect1m``, ``degraded1m``, ``multidc1m`` and
+    ``geo100k`` (``sim.scenarios``).
   - ``convert``  -- numpy bridges for state and keys.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
@@ -29,29 +33,37 @@ from consul_tpu_torch.models import (
     BroadcastConfig,
     LifeguardConfig,
     MembershipConfig,
+    MultiDCConfig,
     SparseMembershipConfig,
     SwimConfig,
 )
 from consul_tpu_torch.parallel import make_mesh, mesh_for
 from consul_tpu_torch.sim import (
     run_broadcast,
+    run_geo,
     run_lifeguard,
     run_membership,
     run_membership_sparse,
+    run_multidc,
     run_swim,
 )
+from consul_tpu_torch.geo import GeoConfig  # noqa: E402 (needs sim first)
 
 __all__ = [
     "BroadcastConfig",
+    "GeoConfig",
     "LifeguardConfig",
     "MembershipConfig",
+    "MultiDCConfig",
     "SparseMembershipConfig",
     "SwimConfig",
     "make_mesh",
     "mesh_for",
     "run_broadcast",
+    "run_geo",
     "run_lifeguard",
     "run_membership",
     "run_membership_sparse",
+    "run_multidc",
     "run_swim",
 ]

@@ -11,7 +11,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from consul_tpu_torch.models.broadcast import BroadcastState
+
+def _port_state_classes() -> dict:
+    """The port's state NamedTuples by class name (each is named as its
+    counterpart in the JAX package)."""
+    from consul_tpu_torch.geo.model import GeoState
+    from consul_tpu_torch.models import (
+        BroadcastState,
+        MembershipState,
+        MultiDCState,
+        SparseMembershipState,
+        SwimState,
+        VivaldiState,
+    )
+
+    return {cls.__name__: cls for cls in (
+        BroadcastState, GeoState, MembershipState, MultiDCState,
+        SparseMembershipState, SwimState, VivaldiState)}
 
 
 def key_from_numpy(key, device="cpu") -> torch.Tensor:
@@ -22,10 +38,18 @@ def key_from_numpy(key, device="cpu") -> torch.Tensor:
     return torch.from_numpy(k.astype(np.int64)).to(device)
 
 
-def state_from_numpy(state, device="cpu", state_cls=BroadcastState):
+def state_from_numpy(state, device="cpu", state_cls=None):
     """A state NamedTuple of numpy arrays (the JAX state through
     ``np.asarray``) as the port's ``state_cls`` on ``device``, leaf for
-    leaf and dtype for dtype; 0-d leaves (``tick``) stay 0-dim."""
+    leaf and dtype for dtype; 0-d leaves (``tick``) stay 0-dim.  Without
+    ``state_cls``, the port's class of the same name as the state's
+    (``BroadcastState``, ``SwimState``, ``MultiDCState``, ``GeoState``,
+    ``VivaldiState``, ...)."""
+    if state_cls is None:
+        name = type(state).__name__
+        state_cls = _port_state_classes().get(name)
+        if state_cls is None:
+            raise TypeError(f"no port state class named {name!r}")
     return state_cls(*(
         torch.from_numpy(np.array(getattr(state, name), copy=True)).to(device)
         for name in state_cls._fields

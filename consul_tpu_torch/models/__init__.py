@@ -1,4 +1,5 @@
-"""The protocol planes as PyTorch models."""
+"""The protocol planes as PyTorch models (broadcast, SWIM, Lifeguard,
+membership, multi-DC, Vivaldi)."""
 
 from consul_tpu_torch.models.broadcast import (
     BroadcastConfig,
@@ -18,12 +19,24 @@ from consul_tpu_torch.models.membership import (
     membership_init,
     membership_round,
 )
+from consul_tpu_torch.models.vivaldi import (
+    VivaldiConfig,
+    VivaldiState,
+    vivaldi_init,
+    vivaldi_round,
+)
 from consul_tpu_torch.models.membership_sparse import (
     SparseMembershipConfig,
     SparseMembershipState,
     densify,
     sparse_membership_init,
     sparse_membership_round,
+)
+from consul_tpu_torch.models.multidc import (
+    MultiDCConfig,
+    MultiDCState,
+    multidc_init,
+    multidc_round,
 )
 from consul_tpu_torch.models.swim import (
     SwimConfig,
@@ -39,10 +52,14 @@ __all__ = [
     "LifeguardState",
     "MembershipConfig",
     "MembershipState",
+    "MultiDCConfig",
+    "MultiDCState",
     "SparseMembershipConfig",
     "SparseMembershipState",
     "SwimConfig",
     "SwimState",
+    "VivaldiConfig",
+    "VivaldiState",
     "broadcast_init",
     "broadcast_round",
     "densify",
@@ -50,8 +67,12 @@ __all__ = [
     "lifeguard_round",
     "membership_init",
     "membership_round",
+    "multidc_init",
+    "multidc_round",
     "sparse_membership_init",
     "sparse_membership_round",
     "swim_init",
     "swim_round",
+    "vivaldi_init",
+    "vivaldi_round",
 ]

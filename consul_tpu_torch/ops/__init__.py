@@ -1,6 +1,7 @@
 """Tensor primitives: threefry draws, peer sampling, budget compaction,
 delivery scatters, the sort-merge delivery into sorted slot rows, and the
-ring-exchange kernel."""
+ring-exchange kernel; ``xla_math`` holds the reference's float32
+transcendentals as XLA's CPU backend computes them."""
 
 from consul_tpu_torch.ops.compact import compact_to_budget
 from consul_tpu_torch.ops.ring_exchange import (
@@ -36,6 +37,8 @@ from consul_tpu_torch.ops.sortmerge import (
 from consul_tpu_torch.ops.threefry import (
     PRNGKey,
     fold_in,
+    normal,
+    poisson,
     randint,
     random_bits,
     split,
@@ -57,10 +60,12 @@ __all__ = [
     "insert_rows_one",
     "merge_deliveries",
     "merge_into_rows",
+    "normal",
     "owned_keys",
     "owned_randint",
     "owned_uniform",
     "owned_uniform_rows",
+    "poisson",
     "poissonized_arrivals",
     "poissonized_arrivals_owned",
     "randint",

@@ -11,7 +11,11 @@ so the port reproduces that generator exactly:
   ``_threefry_split_foldlike``);
 * :func:`random_bits`, :func:`uniform` and :func:`randint` — the draws
   (``prng.py`` ``_threefry_random_bits_partitionable``;
-  ``jax/_src/random.py`` ``_uniform``, ``_randint``).
+  ``jax/_src/random.py`` ``_uniform``, ``_randint``);
+* :func:`normal` and :func:`poisson` — ``jax/_src/random.py``
+  ``_normal_real`` and ``_poisson`` (Knuth below lam 10, Hormann's
+  transformed rejection above), over the float32 functions of
+  :mod:`consul_tpu_torch.ops.xla_math`.
 
 A key is an int64 tensor of shape ``[..., 2]`` holding two uint32
 words; leading dimensions are a batch of keys (what ``jax.vmap`` over
@@ -26,9 +30,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from consul_tpu_torch.device import device_scalar
+from consul_tpu_torch.ops import xla_math
+from consul_tpu_torch.ops.sortmerge import host_cond
 
 MASK32 = 0xFFFFFFFF
 _KS_PARITY = 0x1BD11BDA
@@ -107,13 +114,120 @@ def random_bits(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
-    """float32 ``jax.random.uniform`` in [0, 1): the top 23 bits as the
-    mantissa of a float in [1, 2), minus one.  (Other bounds would add a
-    scale and shift whose rounding XLA may fuse; the port draws none.)"""
+def uniform(key: torch.Tensor, shape: tuple = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 ``jax.random.uniform`` in [minval, maxval): the top 23 bits
+    as the mantissa of a float in [1, 2), minus one, then
+    ``max(minval, floats * (maxval - minval) + minval)`` with the bounds
+    and their difference in float32 and the multiply-add fused, as XLA
+    compiles it.  On [0, 1) that is the floats themselves."""
     bits = random_bits(key, shape)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return floats - 1.0
+    floats = floats - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return floats
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo
+    lo_t = torch.full((), float(lo), dtype=torch.float32, device=key.device)
+    return torch.maximum(lo_t, xla_math.fma(floats, float(span), lo_t))
+
+
+def normal(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+    """float32 ``jax.random.normal``: ``sqrt(2) * erf_inv(u)`` with ``u``
+    uniform in [nextafter(-1, 0), 1), ``erf_inv`` as XLA evaluates it."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    sqrt2 = torch.full((), float(np.float32(np.sqrt(2))), dtype=torch.float32,
+                       device=key.device)
+    return sqrt2 * xla_math.erf_inv(u)
+
+
+# Knuth iterations between two host reads of the loop predicate.
+POISSON_BLOCK = 8
+
+
+def _poisson_knuth(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Knuth's count over every lane: each iteration takes the next split
+    of the carried key, draws a float32 uniform per lane, and a lane
+    counts while its running float32 sum of logs stays above ``-lam``.
+    The reference stops at the first iteration where no lane counts; a
+    lane's sum only falls, so iterations past that change nothing, and
+    the port runs them ``POISSON_BLOCK`` at a time with one host read a
+    block."""
+    k = torch.zeros(lam.shape, dtype=torch.int32, device=lam.device)
+    log_prod = torch.zeros(lam.shape, dtype=torch.float32, device=lam.device)
+    neg_lam = -lam
+    rng = key
+    while True:
+        subkeys = []
+        for _ in range(POISSON_BLOCK):
+            rng, sub = split(rng).unbind(-2)
+            subkeys.append(sub)
+        logs = xla_math.log(uniform(torch.stack(subkeys), tuple(lam.shape)))
+        for i in range(POISSON_BLOCK):
+            k = k + (log_prod > neg_lam).to(torch.int32)
+            log_prod = log_prod + logs[i]
+        if not host_cond((log_prod > neg_lam).any()):
+            return k - 1
+
+
+def _poisson_rejection(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Hormann's transformed rejection (``jax/_src/random.py``
+    ``_poisson_rejection``) with XLA's fused multiply-adds.  A lane keeps
+    the ``k`` of its LAST accepting iteration, so the iteration count
+    matters: the loop reads its predicate every iteration, as the
+    reference's does.  ``lgamma`` is PyTorch's."""
+    f32 = torch.float32
+
+    def c(v):
+        return torch.full((), v, dtype=f32, device=lam.device)
+
+    log_lam = xla_math.log(lam)
+    b = xla_math.fma(2.53, xla_math.sqrt(lam), 0.931)
+    a = xla_math.fma(0.02483, b, -0.059)
+    inv_alpha = c(1.1239) + c(1.1328) / (b - c(3.4))
+    v_r = c(0.9277) - c(3.6224) / (b - c(2.0))
+    k_out = torch.full(lam.shape, -1.0, dtype=f32, device=lam.device)
+    accepted = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
+    shape = tuple(lam.shape)
+    while True:
+        keys = split(key, 3)
+        key, k0, k1 = keys.unbind(-2)
+        u = uniform(k0, shape) - c(0.5)
+        v = uniform(k1, shape)
+        u_shifted = c(0.5) - torch.abs(u)
+        kk = torch.floor(
+            xla_math.fma(c(2.0) * a / u_shifted + b, u, lam) + c(0.43))
+        s = xla_math.log(v * inv_alpha / (a / (u_shifted * u_shifted) + b))
+        t = xla_math.fma(kk, log_lam, -lam) - torch.lgamma(kk + c(1.0))
+        accept1 = (u_shifted >= c(0.07)) & (v <= v_r)
+        reject = (kk < 0) | ((u_shifted < c(0.013)) & (v > u_shifted))
+        accept = accept1 | (~reject & (s <= t))
+        k_out = torch.where(accept, kk, k_out)
+        accepted = accepted | accept
+        if not host_cond((~accepted).any()):
+            return k_out.to(torch.int32)
+
+
+def poisson(key: torch.Tensor, lam: torch.Tensor,
+            lam_max: float = None) -> torch.Tensor:
+    """int32 ``jax.random.poisson(key, lam)`` for a float32 ``lam``: Knuth
+    where ``lam < 10``, Hormann's rejection elsewhere, 0 where
+    ``lam == 0``.  The rejection branch runs only where some lane may
+    reach 10: ``lam_max``, a static bound on ``lam`` from the caller's
+    config, below 10 says none can; without it the lanes are read on the
+    host (one synchronisation).  Both branches are counted in
+    ``host_cond.syncs``."""
+    use_knuth = torch.isnan(lam) | (lam < 10)
+    zero = torch.zeros((), dtype=torch.float32, device=lam.device)
+    result = _poisson_knuth(key, torch.where(use_knuth, lam, zero))
+    if lam_max is None or lam_max >= 10:
+        if host_cond((~use_knuth).any()):
+            big = torch.full((), 1e5, dtype=torch.float32, device=lam.device)
+            rejected = _poisson_rejection(
+                key, torch.where(use_knuth, big, lam))
+            result = torch.where(use_knuth, result, rejected)
+    return torch.where(lam == 0, torch.zeros_like(result), result)
 
 
 def _clip_int32(x) -> torch.Tensor:

@@ -12,6 +12,7 @@ from consul_tpu_torch.parallel.shard import (
     outbox_budget,
     pack_outbox,
     sharded_broadcast_scan,
+    sharded_geo_scan,
 )
 
 __all__ = [
@@ -24,4 +25,5 @@ __all__ = [
     "outbox_budget",
     "pack_outbox",
     "sharded_broadcast_scan",
+    "sharded_geo_scan",
 ]

@@ -1,6 +1,7 @@
 """The sharded simulation plane over D logical shards on one device.
 
-The port of ``consul_tpu/parallel/shard.py`` (broadcast family).  Shard
+The port of ``consul_tpu/parallel/shard.py`` (the broadcast and geo
+families).  Shard
 ``me`` owns the contiguous block of global ids ``[me*blk, (me+1)*blk)``;
 every per-node plane is ``[D, blk]``, and one sharded round decomposes as
 in the reference:
@@ -214,3 +215,107 @@ def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
         tick=st.tick,
     )
     return final, (infected, ov)
+
+
+def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
+                     exchange: str = "alltoall"):
+    """Sharded twin of ``sim.engine.geo_scan`` (cfg: a GeoConfig).
+
+    Segments lie contiguously over the shards (``segments % D == 0``, each
+    shard owning ``segments/D`` whole DCs), so the LAN gossip is
+    shard-local and only WAN units cross.  The link plane is replicated
+    in the reference (a pure function of the bridge-known masks, which
+    are sums over the shard axis of each shard's own segments, and of the
+    replicated round keys); on one card it is stepped once.  Each
+    delivery slot is emitted by the shard owning its SOURCE segment:
+    deliveries to its own nodes land directly, the others ride the
+    per-destination outbox with the two columns ``(recv, ev)``
+    (``exchange`` = ``"alltoall"`` | ``"ring"``).  D == 1 equals the
+    unsharded scan.  Returns ``(final_state, (*outs, outbox_overflow))``
+    with ``outbox_overflow`` the running count of budget misses per tick."""
+    from consul_tpu_torch.geo.model import (
+        GeoState,
+        bridge_known,
+        geo_constants,
+        lan_arrivals,
+        link_plane,
+        merge,
+        per_segment_done,
+    )
+
+    _check_backend(exchange)
+    n, S, E = cfg.n, cfg.segments, cfg.events
+    S2, U = cfg.n_links, cfg.cap_units
+    d_shards = mesh.n_shards
+    if S % d_shards:
+        raise ValueError(
+            f"segments={S} does not divide over {d_shards} devices: the geo "
+            "layout owns whole DCs per device"
+        )
+    spd = S // d_shards
+    blk = block_size(n, mesh)
+    dev = state.knows.device
+    if mesh.device is not None and dev != mesh.device:
+        raise ValueError(f"state on {dev} but mesh on {mesh.device}")
+    if state.knows.shape != (n, E):
+        raise ValueError(f"state holds {tuple(state.knows.shape)}, cfg "
+                         f"{(n, E)}")
+    # A shard emits only the slots of links leaving its own segments.
+    budget = outbox_budget(spd * S * U, d_shards)
+    consts = geo_constants(cfg, dev)
+    me = torch.arange(d_shards, device=dev)[:, None]
+    rows_g = torch.arange(n, dtype=torch.int32, device=dev).view(
+        d_shards, blk)
+    src_owner = (consts.src // spd)[:, None].expand(S2, U).reshape(-1)
+    emits = src_owner[None, :] == me                    # [D, S2*U]
+
+    outs = (
+        torch.empty((steps, S), dtype=torch.int32, device=dev),
+        *(torch.empty((steps, S2), dtype=torch.int32, device=dev)
+          for _ in range(4)),
+        torch.empty(steps, dtype=torch.int32, device=dev),
+        torch.empty(steps, dtype=torch.int32, device=dev),
+    )
+    ob_ov = torch.zeros((), dtype=torch.int32, device=dev)
+    st = state
+    for t in range(steps):
+        k_lan, k_gossip, k_tgt, k_loss = split(fold_in(key, t), 4).unbind(-2)
+        knows = st.knows.view(d_shards, blk, E)
+        senders, got_lan = lan_arrivals(knows, st.tx_lan.view(d_shards, blk, E),
+                                        rows_g, k_lan, cfg)
+        bk, bk_cnt = bridge_known(knows, cfg)
+        step = link_plane(st, bk, bk_cnt, k_gossip, k_tgt, k_loss, cfg,
+                          consts)
+
+        recv_f = step.recv.reshape(-1)
+        ev_f = step.ev_slot.reshape(-1)
+        okf = step.live.reshape(-1)[None, :] & emits     # [D, S2*U]
+        dest = (recv_f // blk).to(torch.int64)[None, :].expand(d_shards, -1)
+        local = okf & (dest == me)
+        # Shard me's local index (recv - me*blk)*E + ev is the global
+        # index recv*E + ev of the [D*blk*E] plane.
+        flat = recv_f.to(torch.int64) * E + ev_f
+        hits = torch.zeros(n * E + 1, dtype=torch.bool, device=dev)
+        hits[torch.where(local, flat[None, :], n * E).reshape(-1)] = True
+        cols = tuple(c[None, :].expand(d_shards, -1) for c in (recv_f, ev_f))
+        packed, dropped = pack_outbox(dest, okf & (dest != me), cols,
+                                      d_shards, budget)
+        ib_recv, ib_ev = exchange_outbox(packed, backend=exchange)
+        flat_in = torch.where(ib_recv >= 0,
+                              ib_recv.to(torch.int64) * E + ib_ev, n * E)
+        hits[flat_in.reshape(-1)] = True
+        got_wan = hits[:n * E].view(d_shards, blk, E) & ~knows
+        ob_ov = ob_ov + torch.sum(dropped, dtype=torch.int32)
+
+        new_knows, tx_lan = merge(knows, st.tx_lan.view(d_shards, blk, E),
+                                  senders, got_lan | got_wan, cfg)
+        for o, v in zip(outs, (per_segment_done(new_knows, cfg), step.offered,
+                               step.admitted, step.queued, step.overflow,
+                               step.wasted, ob_ov)):
+            o[t] = v
+        st = GeoState(
+            knows=new_knows.view(n, E), tx_lan=tx_lan.view(n, E),
+            ring=step.ring, queue=step.queue, known_hist=step.known_hist,
+            ewma=step.ewma, wasted=step.wasted, tick=st.tick + 1,
+        )
+    return st, outs

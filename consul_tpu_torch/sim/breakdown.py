@@ -9,7 +9,11 @@ loss, subject 42: aggregate and edges), the degraded1m Lifeguard study at
 1M (Lifeguard on), and the membership studies (LAN, loss 0.01, subject 42
 crashing at tick 5): the top-K sparse model (K=64) at 100k nodes in the
 steady state (8 ticks from the converged state) and at 1M nodes cold (its
-first 10 ticks), and the dense model at 16384 nodes (10 ticks).
+first 10 ticks), and the dense model at 16384 nodes (10 ticks); then the
+geo slice: ``multidc1m`` (1M nodes, 8 segments x 5 bridges, aggregate,
+120 ticks), bench.py's geo A/B at 1M (the adaptive arm, 160 ticks, over
+the Vivaldi-derived latencies) and the same over 8 logical shards with the
+ring transport.
 
 Each study runs once to warm up, once timed over all its ticks without
 the profiler (rounds/s), and over a shorter window twice: once timed
@@ -43,6 +47,8 @@ LIFEGUARD_STEPS = 160
 SPARSE_STEADY_STEPS = 8
 MEMBERSHIP_WINDOW = 10
 DENSE_N = 16384
+MULTIDC_STEPS = 120
+GEO_STEPS = 160
 
 # Kernel-name fragments -> the layer that launches them.  The threefry
 # draws are elementwise int64 arithmetic; everything elementwise that is
@@ -159,20 +165,27 @@ def main() -> int:
         BroadcastConfig,
         LifeguardConfig,
         MembershipConfig,
+        MultiDCConfig,
         SparseMembershipConfig,
         SwimConfig,
         mesh_for,
         run_broadcast,
         run_lifeguard,
         run_membership,
+        run_geo,
         run_membership_sparse,
+        run_multidc,
         run_swim,
     )
+    from consul_tpu_torch.geo import derive_wan_latency
     from consul_tpu_torch.models.membership_sparse import converged_state
     from consul_tpu_torch.ops import PRNGKey
     from consul_tpu_torch.protocol import LAN, WAN
     from consul_tpu_torch.sim import sparse_membership_scan
-    from consul_tpu_torch.sim.scenarios import degraded1m_environment
+    from consul_tpu_torch.sim.scenarios import (
+        degraded1m_environment,
+        geo_ab_config,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -195,6 +208,12 @@ def main() -> int:
                                         k_slots=64)
               for n in (100_000, N_NODES)}
     dense = MembershipConfig(n=DENSE_N, **base)
+    multidc = MultiDCConfig(n=N_NODES, segments=8, bridges_per_segment=5,
+                            delivery="aggregate")
+    latency, _ = derive_wan_latency(8, 5, tick_ms=LAN.gossip_interval_ms,
+                                    seed=0, rounds=400, wan_window=8,
+                                    device=dev)
+    geo = geo_ab_config(latency, n=N_NODES)
 
     def study(entry, cfg, **kw):
         def run(steps):
@@ -231,6 +250,12 @@ def main() -> int:
          MEMBERSHIP_WINDOW, MEMBERSHIP_WINDOW),
         ("membership_dense_16k", study(run_membership, dense, track=(42,)),
          MEMBERSHIP_WINDOW, MEMBERSHIP_WINDOW),
+        ("multidc1m", study(run_multidc, multidc,
+                            origin=multidc.seg_size // 2),
+         MULTIDC_STEPS, 20),
+        ("geo_1m_adaptive", study(run_geo, geo), GEO_STEPS, 10),
+        ("geo_1m_adaptive_d8_ring", study(run_geo, geo, mesh=mesh_for(8),
+                                          exchange="ring"), GEO_STEPS, 10),
     )
     for label, run, ticks, window in studies:
         print(json.dumps(profile_study(run, label, ticks, window)),

@@ -1,7 +1,7 @@
 """The study engine: tick loops over the round functions, timed on the device.
 
-The port of the broadcast, SWIM, Lifeguard and (unsharded) membership
-paths of ``consul_tpu/sim/engine.py``.  Round
+The port of the broadcast, SWIM, Lifeguard, (unsharded) membership,
+multi-DC and geo paths of ``consul_tpu/sim/engine.py``.  Round
 keys are counter-based as in the reference: round ``t`` draws from
 ``fold_in(scan_key, t)``, so trajectories are prefix-stable in ``steps``
 and the sharded twin stays bit-equal at D == 1.  ``lax.scan`` becomes a
@@ -31,6 +31,11 @@ from consul_tpu_torch.models.membership import (
     membership_init,
     membership_round,
 )
+from consul_tpu_torch.models.multidc import (
+    MultiDCConfig,
+    multidc_init,
+    multidc_round,
+)
 from consul_tpu_torch.models.membership_sparse import (
     sparse_constants,
     sparse_membership_init,
@@ -45,11 +50,15 @@ from consul_tpu_torch.models.swim import (
     swim_round,
 )
 from consul_tpu_torch.ops import PRNGKey, fold_in
-from consul_tpu_torch.parallel.shard import sharded_broadcast_scan
+from consul_tpu_torch.parallel.shard import (
+    sharded_broadcast_scan,
+    sharded_geo_scan,
+)
 from consul_tpu_torch.sim.metrics import (
     BroadcastReport,
     FalsePositiveReport,
     MembershipReport,
+    MultiDCReport,
     SwimReport,
 )
 
@@ -62,6 +71,45 @@ def broadcast_scan(state, key: torch.Tensor, cfg: BroadcastConfig,
         state = broadcast_round(state, fold_in(key, t), cfg)
         infected[t] = torch.sum(state.knows, dtype=torch.int32)
     return state, infected
+
+
+def multidc_scan(state, key: torch.Tensor, cfg: MultiDCConfig, steps: int):
+    """Run ``steps`` LAN ticks of the two-edge-class broadcast; returns
+    (final_state, (infected_total[steps], infected_per_segment[steps, S]))."""
+    dev = key.device
+    total = torch.empty(steps, dtype=torch.int32, device=dev)
+    per_seg = torch.empty((steps, cfg.segments), dtype=torch.int32,
+                          device=dev)
+    for t in range(steps):
+        state = multidc_round(state, fold_in(key, t), cfg)
+        per_seg[t] = torch.sum(state.knows.view(cfg.segments, cfg.seg_size),
+                               dim=1, dtype=torch.int32)
+        total[t] = torch.sum(state.knows, dtype=torch.int32)
+    return state, (total, per_seg)
+
+
+def geo_scan(state, key: torch.Tensor, cfg, steps: int):
+    """Run ``steps`` LAN ticks of the geo/WAN plane (``geo.model.geo_round``);
+    returns ``(final_state, outs)`` with ``outs`` the per-tick
+    ``(per_segment, offered, admitted, queued, overflow, wasted)``."""
+    # Imported at call time: geo.model depends on sim.faults, whose
+    # package imports this module.
+    from consul_tpu_torch.geo.model import geo_constants, geo_round
+
+    dev = key.device
+    consts = geo_constants(cfg, dev)
+    S, S2 = cfg.segments, cfg.n_links
+    outs = (
+        torch.empty((steps, S), dtype=torch.int32, device=dev),
+        *(torch.empty((steps, S2), dtype=torch.int32, device=dev)
+          for _ in range(4)),
+        torch.empty(steps, dtype=torch.int32, device=dev),
+    )
+    for t in range(steps):
+        state, out = geo_round(state, fold_in(key, t), cfg, consts)
+        for o, v in zip(outs, out):
+            o[t] = v
+    return state, outs
 
 
 def _count(view: torch.Tensor, value: int) -> torch.Tensor:
@@ -222,8 +270,9 @@ def _check_later_slice(**knobs) -> None:
     for name, (value, default) in knobs.items():
         if value != default:
             raise NotImplementedError(
-                f"{name}= is not ported yet (the sharded membership plane "
-                "and telemetry come in later slices)"
+                f"{name}= is not ported yet (the multi-card placement, the "
+                "sharded membership plane and telemetry come in later "
+                "slices)"
             )
 
 
@@ -424,3 +473,94 @@ def run_membership_sparse(
     report = _membership_report(cfg.base, track, outs, wall, dev)
     report.forgotten = int(final.forgotten)
     return report, int(final.overflow)
+
+
+def run_multidc(
+    cfg: MultiDCConfig,
+    steps: int,
+    seed: int = 0,
+    origin: int = 0,
+    sharded: bool = False,
+    mesh=None,
+    warmup: bool = True,
+    device=None,
+) -> MultiDCReport:
+    """Two-edge-class (LAN intra-segment / WAN cross-segment) broadcast
+    study.  Runs on CUDA unless ``device`` says otherwise.  ``sharded``
+    and ``mesh`` (the reference's placement of whole segments on each of
+    several devices, which leaves the results unchanged) wait for the
+    multi-card work and are rejected."""
+    _check_later_slice(sharded=(sharded, False), mesh=(mesh, None))
+    dev = resolve_device(device)
+    _, (total, per_seg), wall = _timed(
+        lambda: multidc_init(cfg, origin=origin, device=dev),
+        lambda st, k: multidc_scan(st, k, cfg, steps),
+        PRNGKey(seed, device=dev), dev, warmup,
+    )
+    return MultiDCReport(
+        n=cfg.n,
+        segments=cfg.segments,
+        ticks=steps,
+        tick_ms=cfg.lan_profile.gossip_interval_ms,
+        infected=total,
+        per_segment=per_seg,
+        wall_s=wall,
+        device=_device_name(dev),
+    )
+
+
+def run_geo(
+    cfg,
+    steps: int,
+    seed: int = 0,
+    warmup: bool = True,
+    mesh=None,
+    exchange: str = "alltoall",
+    telemetry: bool = False,
+    device=None,
+):
+    """Geo-distributed WAN study (cfg: a GeoConfig): E concurrent events
+    spread over S segments through latency-delayed, bandwidth-capped WAN
+    links with adaptive (or fixed) anti-entropy between the bridge sets.
+    Returns a ``geo.GeoReport``.  ``mesh=`` runs the sharded twin
+    (segments laid out contiguously over D logical shards, WAN units over
+    the outbox) and fills ``report.shard_overflow``; ``exchange`` picks
+    its transport.  Runs on CUDA unless ``device`` (or the mesh's device)
+    says otherwise; ``telemetry`` waits for a later slice and is
+    rejected."""
+    from consul_tpu_torch.geo.model import geo_init
+    from consul_tpu_torch.geo.report import GeoReport
+
+    _check_later_slice(telemetry=(telemetry, False))
+    _check_exchange(exchange, mesh)
+    if device is None and mesh is not None:
+        device = mesh.device
+    dev = resolve_device(device)
+    if mesh is not None:
+        def scan(st, k):
+            return sharded_geo_scan(st, k, cfg, steps, mesh, exchange)
+    else:
+        def scan(st, k):
+            return geo_scan(st, k, cfg, steps)
+
+    _, outs, wall = _timed(lambda: geo_init(cfg, device=dev), scan,
+                           PRNGKey(seed, device=dev), dev, warmup)
+    per_segment, offered, admitted, queued, overflow, wasted = outs[:6]
+    return GeoReport(
+        n=cfg.n,
+        segments=cfg.segments,
+        events=cfg.events,
+        ticks=steps,
+        tick_ms=cfg.lan_profile.gossip_interval_ms,
+        msg_bytes=cfg.wan_msg_bytes,
+        adaptive=cfg.adaptive,
+        per_segment=per_segment,
+        offered=offered,
+        admitted=admitted,
+        queued=queued,
+        overflow=overflow,
+        wasted=wasted,
+        wall_s=wall,
+        shard_overflow=int(outs[6][-1]) if mesh is not None else None,
+        device=_device_name(dev),
+    )

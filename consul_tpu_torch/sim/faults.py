@@ -1,9 +1,9 @@
 """Fault-injection schedules: the environment of a Lifeguard study.
 
-The port of ``consul_tpu/sim/faults.py`` without the geo plane's link
-capacities.  A :class:`FaultSchedule` is a static, hashable description
-of the environment; every query is a function of ``(schedule, tick[,
-key])`` on tensors, so a round reads it without leaving the device.
+The port of ``consul_tpu/sim/faults.py``.  A :class:`FaultSchedule` is a
+static, hashable description of the environment; every query is a
+function of ``(schedule, tick[, key])`` on tensors, so a round reads it
+without leaving the device.
 
   LossRamp      piecewise-constant extra packet loss over time
   Partition     cross-segment edges drop with ``severity`` in [start, heal)
@@ -11,8 +11,8 @@ key])`` on tensors, so a round reads it without leaving the device.
                 see late acks
   ChurnWindow   nodes independently offline with a per-tick probability
   BandwidthSchedule
-                per-link WAN capacity; kept so that a Lifeguard config can
-                reject it, since only the geo plane has links to cap
+                per-directed-link WAN capacity of the geo plane
+                (:func:`link_capacity_at`); a Lifeguard config rejects it
 
 Independent drop processes combine as ``1 - prod(1 - p_i)`` in the
 reference's float32 operation order.
@@ -263,3 +263,44 @@ def online_mask(sched: FaultSchedule, key: torch.Tensor, tick: torch.Tensor,
         return torch.ones(n, dtype=torch.bool, device=tick.device)
     ids = torch.arange(n, dtype=torch.int32, device=tick.device)
     return owned_uniform(key, ids) >= offline_prob_at(sched, tick)
+
+
+def _link_mask(bs: BandwidthSchedule, segments: int,
+               device) -> torch.Tensor:
+    """bool[S, S] on ``device``: the directed links a schedule constrains
+    (``src``/``dst`` select one segment each, -1 every segment)."""
+    seg = torch.arange(segments, device=device)
+    mask = torch.ones((segments, segments), dtype=torch.bool, device=device)
+    for sel, name in ((bs.src, "src"), (bs.dst, "dst")):
+        if sel < 0:
+            continue
+        if sel >= segments:
+            raise ValueError(
+                f"BandwidthSchedule {name}={sel} outside [0, {segments})"
+            )
+        pick = seg == sel
+        mask = mask & (pick[:, None] if name == "src" else pick[None, :])
+    return mask
+
+
+def link_capacity_at(sched: FaultSchedule, tick: torch.Tensor, segments: int,
+                     base: float) -> torch.Tensor:
+    """float32[S, S]: per-directed-link capacity in bytes/tick at ``tick``.
+    ``base`` is the static per-link ceiling; schedules only tighten it.
+    The piece in force is the last whose start is <= tick (the reference's
+    right-sided searchsorted; before the first piece the base applies),
+    scaled in float32 by ``scale``; schedules combine by per-link minimum
+    and the result is clipped to [0, base]."""
+    dev = tick.device
+    base_t = torch.full((), base, dtype=torch.float32, device=dev)
+    cap = torch.full((segments, segments), base, dtype=torch.float32,
+                     device=dev)
+    for bs in sched.bandwidth:
+        vals = (np.asarray([c for _, c in bs.pieces], np.float32)
+                * np.float32(bs.scale))
+        val = base_t
+        for (start, _), value in zip(bs.pieces, vals.tolist()):
+            val = torch.where(tick >= start, value, val)
+        mask = _link_mask(bs, segments, dev)
+        cap = torch.where(mask, torch.minimum(cap, val), cap)
+    return torch.clamp(cap, min=0.0, max=float(np.float32(base)))

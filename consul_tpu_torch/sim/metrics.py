@@ -232,3 +232,55 @@ class SwimReport:
             "sim_rounds_per_sec": self.rounds_per_sec,
             "device": self.device,
         }
+
+
+@dataclasses.dataclass
+class MultiDCReport:
+    """Infection curves for a segmented (multi-DC) broadcast: global and
+    per-segment, so the WAN hop's latency contribution is visible."""
+
+    n: int
+    segments: int
+    ticks: int
+    tick_ms: float
+    infected: np.ndarray          # int32[ticks] — global
+    per_segment: np.ndarray       # int32[ticks, S]
+    wall_s: float
+    device: str = ""              # what the run ran on
+
+    @property
+    def rounds_per_sec(self) -> float:
+        return self.ticks / self.wall_s if self.wall_s > 0 else float("inf")
+
+    @property
+    def seg_size(self) -> int:
+        return self.n // self.segments
+
+    def time_to_ms(self, frac: float) -> Optional[float]:
+        t = time_to_fraction(self.infected, self.n, frac)
+        return None if t is None else (t + 1) * self.tick_ms
+
+    def segment_t99_ms(self, s: int) -> Optional[float]:
+        t = time_to_fraction(self.per_segment[:, s], self.seg_size, 0.99)
+        return None if t is None else (t + 1) * self.tick_ms
+
+    def segments_reached(self) -> int:
+        """Segments with at least one infected member at the end."""
+        return int((self.per_segment[-1] > 0).sum())
+
+    def summary(self) -> dict:
+        return {
+            "n": self.n,
+            "segments": self.segments,
+            "ticks": self.ticks,
+            "tick_ms": self.tick_ms,
+            "infected_final": int(self.infected[-1]),
+            "segments_reached": self.segments_reached(),
+            "t50_ms": self.time_to_ms(0.50),
+            "t99_ms": self.time_to_ms(0.99),
+            "segment_t99_ms": [
+                self.segment_t99_ms(s) for s in range(self.segments)
+            ],
+            "sim_rounds_per_sec": self.rounds_per_sec,
+            "device": self.device,
+        }

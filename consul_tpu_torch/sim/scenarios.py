@@ -9,6 +9,15 @@ The part of ``consul_tpu/sim/scenarios.py`` the port runs:
   degraded1m  1M-node Lifeguard false-positive study, WAN profile, 2%
               degraded members (dropped sends, late acks), the same
               faulted universe with Lifeguard on and off
+  multidc1m   BASELINE config 5: 1M nodes in 8 segments, LAN gossip
+              inside each, WAN-profile gossip between their servers
+  geo100k     100k nodes in 8 DCs with Vivaldi-derived link latencies,
+              bandwidth-capped WAN links under a brownout, adaptive
+              anti-entropy between the bridge sets
+
+``geo_ab_config`` builds bench.py's geo A/B configuration (1M nodes, 8 DCs
+x 5 bridges, 16 events from DC 0, a brownout to 10% over ticks [5, 120)),
+either arm, for ``run_geo``.
 
 Each returns the reference's summary dict and takes ``device=``
 (CUDA unless given).
@@ -26,7 +35,13 @@ from consul_tpu_torch.models import (
     SwimConfig,
 )
 from consul_tpu_torch.protocol import LAN, WAN
-from consul_tpu_torch.sim.engine import run_lifeguard, run_membership, run_swim
+from consul_tpu_torch.sim.engine import (
+    run_geo,
+    run_lifeguard,
+    run_membership,
+    run_multidc,
+    run_swim,
+)
 
 
 def probe1k(seed: int = 0, device=None) -> dict:
@@ -56,7 +71,11 @@ def probe1k(seed: int = 0, device=None) -> dict:
         )) if any(c is not None for c in conv) else None,
         "sim_rounds_per_sec": rep.rounds_per_sec,
     }
-from consul_tpu_torch.sim.faults import DegradedSet, FaultSchedule
+from consul_tpu_torch.sim.faults import (
+    BandwidthSchedule,
+    DegradedSet,
+    FaultSchedule,
+)
 
 
 def suspect1m(seed: int = 0, device=None) -> dict:
@@ -121,3 +140,88 @@ def degraded1m(seed: int = 0, n: int = 1_000_000, steps: int = 300,
         "mean_awareness_final": float(on.mean_awareness[-1]),
         "sim_rounds_per_sec": on.rounds_per_sec,
     }
+
+
+def multidc1m(seed: int = 0, device=None) -> dict:
+    """BASELINE config 5: 1M nodes in 8 segments of 5 servers each, TWO
+    edge classes (LAN gossip inside each segment, WAN-profile gossip
+    between the servers, memberlist/config.go:315-326), aggregate
+    delivery, 120 ticks.  The reference places one segment per device;
+    the placement leaves its results unchanged, and the port runs the
+    study unsharded on one card."""
+    from consul_tpu_torch.models import MultiDCConfig
+
+    cfg = MultiDCConfig(n=1_000_000, segments=8, bridges_per_segment=5,
+                        delivery="aggregate")
+    # Origin: a non-bridge node of segment 0, so the event climbs onto
+    # the WAN through segment 0's servers and re-enters every other
+    # segment through theirs.
+    rep = run_multidc(cfg, steps=120, seed=seed, origin=cfg.seg_size // 2,
+                      warmup=False, device=device)
+    return {"scenario": "multidc1m", **rep.summary()}
+
+
+def geo100k(seed: int = 0, n: int = 100_000, steps: int = 120,
+            devices: int = None, exchange: str = "alltoall",
+            device=None) -> dict:
+    """100k-node geo/WAN study: 8 DCs with Vivaldi-derived per-link
+    latency, bandwidth-capped WAN links under a mid-run brownout, and
+    adaptive anti-entropy between the bridge sets.  ``devices`` lays the
+    segments contiguously over D logical shards (WAN units over the
+    outbox, budget misses reported as ``shard_overflow``); ``exchange``
+    picks the transport (``"ring"``: the CUDA ring kernel).
+    ``n``/``steps`` scale down for CPU runs."""
+    from consul_tpu_torch.geo import GeoConfig, derive_wan_latency
+    from consul_tpu_torch.parallel import mesh_for
+
+    base_bytes = 16 * 1400.0
+    latency, vinfo = derive_wan_latency(
+        8, 3, tick_ms=LAN.gossip_interval_ms, seed=seed, rounds=300,
+        wan_window=8, device=device,
+    )
+    cfg = GeoConfig(
+        n=n, segments=8, bridges_per_segment=3, events=16,
+        wan_latency_ticks=latency, wan_window=8,
+        wan_capacity_bytes=base_bytes, wan_msg_bytes=1400,
+        wan_queue_bytes=2 * base_bytes, ae_batch=16, adaptive=True,
+        loss_wan=0.05,
+        faults=FaultSchedule(bandwidth=(
+            BandwidthSchedule(pieces=((20, 0.2 * base_bytes),
+                                      (80, 64 * base_bytes))),
+        )),
+    )
+    rep = run_geo(cfg, steps=steps, seed=seed, warmup=False,
+                  mesh=mesh_for(devices) if devices else None,
+                  exchange=exchange, device=device)
+    return {
+        "scenario": "geo100k",
+        **rep.summary(),
+        "vivaldi_rel_rtt_error": round(vinfo["rel_rtt_error"], 4),
+        **({"devices": devices, "exchange_backend": exchange}
+           if devices else {}),
+    }
+
+
+def geo_ab_config(latency: tuple, n: int = 1_000_000, adaptive: bool = True):
+    """The GeoConfig of bench.py's geo section (``_geo_section``): 8 DCs of
+    5 bridges, 16 events all published in DC 0 at non-bridge nodes, a
+    16-unit link (1400-byte units) browned out to 10% over ticks [5, 120)
+    and healed after, a 32-unit queue, WAN loss 0.05, over the Vivaldi
+    ``latency`` matrix."""
+    from consul_tpu_torch.geo import GeoConfig
+
+    base_bytes = 16 * 1400.0
+    faults = FaultSchedule(bandwidth=(
+        BandwidthSchedule(pieces=((5, 0.1 * base_bytes),
+                                  (120, 64 * base_bytes))),
+    ))
+    seg_size, bridges, events = n // 8, 5, 16
+    origins = tuple(bridges + e * (seg_size - bridges) // events
+                    for e in range(events))
+    return GeoConfig(
+        n=n, segments=8, bridges_per_segment=bridges, events=events,
+        wan_latency_ticks=latency, wan_window=8,
+        wan_capacity_bytes=base_bytes, wan_msg_bytes=1400,
+        wan_queue_bytes=2 * base_bytes, ae_batch=16, adaptive=adaptive,
+        loss_wan=0.05, origins=origins, faults=faults,
+    )

@@ -20,6 +20,10 @@ MODULES = (
     "consul_tpu_torch.models.swim", "consul_tpu_torch.models.lifeguard",
     "consul_tpu_torch.models.membership",
     "consul_tpu_torch.models.membership_sparse",
+    "consul_tpu_torch.models.multidc", "consul_tpu_torch.models.vivaldi",
+    "consul_tpu_torch.ops.xla_math", "consul_tpu_torch.geo",
+    "consul_tpu_torch.geo.latency", "consul_tpu_torch.geo.model",
+    "consul_tpu_torch.geo.report",
     "consul_tpu_torch.parallel", "consul_tpu_torch.protocol",
     "consul_tpu_torch.sim", "consul_tpu_torch.sim.faults",
     "consul_tpu_torch.sim.scenarios", "consul_tpu_torch.sim.breakdown",
