@@ -8,9 +8,8 @@ Run from the root of the repository.  Phases, each fatal on failure:
   1. the card: print the card's name and power limit, build every
      CUDA kernel of the port from ``consul_tpu_torch/csrc``;
   2. kernels against their plain versions, bit for bit, at small shapes
-     and at the shapes of the main path, and timed there with CUDA events
-     beside the plain version, the one-call PyTorch yardstick and the
-     card's memory-bandwidth bound;
+     and at the broadcast's outbox shape (the ring kernel's box entry
+     point; phase 8 times it at every path's shape);
   3. the threefry draws on CUDA against the same draws on the CPU, and
      against golden values computed with jax 0.9.0
      (``jax_threefry_partitionable=True``);
@@ -43,7 +42,7 @@ Run from the root of the repository.  Phases, each fatal on failure:
      and the chunked and row-blocked branches forced on a small study).
      The ring kernel launches 0 times on this path.
   7. the geo slice: the ring kernel at the geo outbox shape
-     ``[8, 8, 2, 64]`` against its plain version, bit for bit, and timed;
+     ``[8, 8, 2, 64]`` against its plain version, bit for bit;
      ``derive_wan_latency`` on the card for (8 DCs x 5 bridges, 400
      rounds) and (8 x 3, 300 rounds), equal to golden matrices computed
      with jax 0.9.0 and to the port's CPU result; ``multidc1m`` (BASELINE
@@ -58,6 +57,22 @@ Run from the root of the repository.  Phases, each fatal on failure:
      field with its dtype (multi-DC edges and aggregate and geo at
      n=4096 under a brownout and a loss ramp, both arms; 50 Vivaldi
      rounds).
+  8. the sharded membership slice: the rebuilt ring kernel at every ring
+     path's outbox (broadcast ``[8, 8, 1, 125000]``, geo ``[8, 8, 2,
+     64]``, dense 16k ``[8, 8, 4, 12288]``, sparse 100k ``[8, 8, 5,
+     40062]``, sparse 1M ``[8, 8, 5, 400812]``), fed the packed planes at
+     buffer offsets 0 and 1, bit for bit against its plain version, and
+     timed: the whole ``exchange_outbox`` on the ring and on the alltoall
+     path, the kernel alone, the plain version, ``transpose(0,
+     1).contiguous()`` of the stacked box and the byte bound; the
+     studies over 8 logical shards with both transports: sparse 100k cold
+     (200 ticks), sparse 1M cold (60), dense 16k (30), each with ring ==
+     alltoall on every tick and in the final state, one ring launch a
+     tick, at most 2 host syncs a sparse tick (0 dense), the detection
+     invariants, the peak memory, and the unsharded run's outputs where
+     both overflows are 0; and both twins' ticks on CUDA held against the
+     CPU (sparse K=16 at n=4096, dense at n=512), every field and output
+     with its dtype on every tick, both transports.
 
 The next-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -179,25 +194,25 @@ def cuda_ms(fn, iters: int = 50, windows: int = 5, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-def kernel_busy_ms(fn, kernel: str, iters: int = 50) -> float:
-    """Mean device time of one launch of the kernel whose name contains
-    ``kernel``, over ``iters`` calls of ``fn()`` under ``torch.profiler``:
-    the kernel alone, without host time between launches."""
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of the work one ``fn()`` enqueues, in ms: the median over
+    ``iters`` launches of CUDA events recorded just before and after it,
+    each behind a spin kernel (``torch.cuda._sleep``) that keeps the device
+    busy until the host has enqueued the events and ``fn``'s work, so no
+    host time falls between them."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    for evt in prof.key_averages():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and kernel in evt.key):
-            return evt.self_device_time_total / evt.count / 1e3
-    raise SystemExit(f"FAILED: profiler saw no {kernel} kernel")
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in pairs:
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
 def phase_card() -> str:
@@ -220,8 +235,10 @@ def phase_card() -> str:
     return card
 
 
-def phase_ring_kernel(dev) -> dict:
-    """Ring kernel against its plain version; times at the slice's shape."""
+def phase_ring_kernel(dev) -> int:
+    """The box entry point of the ring kernel against its plain version at
+    small shapes and the broadcast outbox's; returns the largest error.
+    Phase 8 times the kernel at every path's shape."""
     import torch
 
     from consul_tpu_torch.ops import ring_exchange, ring_exchange_plain
@@ -251,32 +268,7 @@ def phase_ring_kernel(dev) -> dict:
             check(torch.equal(got, want),
                   f"ring kernel != plain at {shape} offset {offset}")
     log(f"ring kernel == plain at {len(shapes)} shapes x 2 alignments")
-
-    box = box_of(main_shape)
-    ms = cuda_ms(lambda: ring_exchange(box))
-    plain_ms = cuda_ms(lambda: ring_exchange_plain(box))
-    library_ms = cuda_ms(lambda: box.transpose(0, 1).contiguous())
-    busy_ms = kernel_busy_ms(lambda: ring_exchange(box), "ring_exchange")
-    nbytes = 2 * box.numel() * box.element_size()
-    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"ring kernel at {main_shape}: {ms!r} ms (CUDA events, median of 5 "
-        f"windows of 50 calls), {busy_ms!r} ms a launch (profiler, kernel "
-        f"alone), plain {plain_ms!r} ms, transpose().contiguous() "
-        f"{library_ms!r} ms, bound {bound_ms!r} ms ({nbytes} bytes)")
-    return {
-        "name": "ring_exchange",
-        "route": "cuda",
-        "source": "consul_tpu_torch/csrc/ring_exchange.cu",
-        "replaces": "consul_tpu/ops/ring_exchange.py:67",
-        "launches": None,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
-        "library_ms": library_ms,
-        "budget": main_shape[3],
-    }
+    return max_err
 
 
 def phase_threefry(dev) -> None:
@@ -725,10 +717,11 @@ def sparse_steady(cfg, dev, card: str, tag: str):
     return st
 
 
-def phase_membership(dev, card: str) -> None:
+def phase_membership(dev, card: str) -> dict:
     """The membership slice's studies.  The path runs no kernel of the
     port's own: the ring kernel's count, zeroed before each run, must read
-    0 after it."""
+    0 after it.  Returns the cold and dense reports with their overflow by
+    study name, for phase 8 to hold the sharded twins against."""
     import torch
 
     from consul_tpu_torch import MembershipConfig, run_membership
@@ -766,8 +759,10 @@ def phase_membership(dev, card: str) -> None:
             host_syncs_per_tick=per_tick, device=rep.device)
         membership_line(tag, card, **row)
         check(per_tick <= 2, f"{tag}: {per_tick} host syncs a tick")
+        reports[tag] = (rep, overflow)
         return cfg, rep, row
 
+    reports = {}
     cfg100k, _, row = sparse_cold(SPARSE_N, SPARSE_COLD_100K_STEPS,
                                   "membership_sparse_100k_cold")
     check(row["dead99_tick"] is not None,
@@ -796,6 +791,7 @@ def phase_membership(dev, card: str) -> None:
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         host_syncs_per_tick=0.0, device=rep.device)
     check(int(rep.known_members[0]) > 0, "dense 16k: known_members")
+    reports["membership_dense_16k"] = (rep, 0)
 
     ring_exchange.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -807,6 +803,7 @@ def phase_membership(dev, card: str) -> None:
     check(summary["all_detected"], "probe1k: a crash went undetected")
     log(f"ring kernel launches on the membership path: {launches}")
     check(launches == 0, "ring kernel launched on the membership path")
+    return reports
 
 
 def _parity_run(tag, init, rnd, consts, cfg, dev, steps: int, seed: int,
@@ -885,9 +882,10 @@ def phase_membership_parity(dev) -> None:
     sortmerge._BLOCK_ROWS, ms._CHUNK_A, ms._CHUNK_TARGET = saved
 
 
-def phase_geo_kernel(dev) -> dict:
-    """The ring kernel at the geo outbox shape: bit for bit against its
-    plain version, timed beside it and the one-call yardstick."""
+def phase_geo_kernel(dev) -> int:
+    """The box entry point of the ring kernel at the geo outbox shape, bit
+    for bit against its plain version; returns the largest error (phase 8
+    times the kernel there)."""
     import torch
 
     from consul_tpu_torch.ops import ring_exchange, ring_exchange_plain
@@ -900,19 +898,8 @@ def phase_geo_kernel(dev) -> dict:
     torch.cuda.synchronize()
     max_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     check(torch.equal(got, want), f"ring kernel != plain at {GEO_RING_SHAPE}")
-    ms = cuda_ms(lambda: ring_exchange(box))
-    plain_ms = cuda_ms(lambda: ring_exchange_plain(box))
-    library_ms = cuda_ms(lambda: box.transpose(0, 1).contiguous())
-    busy_ms = kernel_busy_ms(lambda: ring_exchange(box), "ring_exchange")
-    nbytes = 2 * box.numel() * box.element_size()
-    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"ring kernel at {GEO_RING_SHAPE}: == plain; {ms!r} ms (CUDA "
-        f"events), {busy_ms!r} ms a launch (profiler), plain {plain_ms!r} "
-        f"ms, transpose().contiguous() {library_ms!r} ms, bound {bound_ms!r}"
-        f" ms ({nbytes} bytes: launch latency, not bytes, sets its time)")
-    return {"shape": list(GEO_RING_SHAPE), "max_abs_err": max_err, "ms": ms,
-            "busy_ms": busy_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "library_ms": library_ms}
+    log(f"ring kernel at {GEO_RING_SHAPE}: == plain")
+    return max_err
 
 
 def phase_geo_latency(dev):
@@ -1130,6 +1117,255 @@ def phase_geo_parity(dev, latency) -> None:
                  dev, VIVALDI_PARITY_ROUNDS, 0)
 
 
+def sharded_dense_cfg():
+    from consul_tpu_torch import MembershipConfig
+    from consul_tpu_torch.protocol import LAN
+
+    return MembershipConfig(n=DENSE_N, loss=0.01, profile=LAN,
+                            fail_at=((42, 5),))
+
+
+def ring_path_shapes(dev) -> list:
+    """(path, [D, D, C, budget]) of every ring path, from the budgets the
+    code computes for the studies that drive it."""
+    from consul_tpu_torch.parallel import (
+        mesh_for,
+        outbox_budget,
+        sharded_membership_plan,
+        sharded_sparse_plan,
+    )
+
+    mesh = mesh_for(SHARDS)
+    return [
+        ("sharded_broadcast_scan(exchange='ring')",
+         (SHARDS, SHARDS, 1, outbox_budget(N_1M // SHARDS * 4, SHARDS))),
+        ("sharded_geo_scan(exchange='ring')", GEO_RING_SHAPE),
+        ("sharded_membership_scan(exchange='ring'), n=16384",
+         (SHARDS, SHARDS, 4,
+          sharded_membership_plan(sharded_dense_cfg(), mesh, dev).budget)),
+        ("sharded_sparse_membership_scan(exchange='ring'), n=100000",
+         (SHARDS, SHARDS, 5,
+          sharded_sparse_plan(sparse_cfg(SPARSE_N), mesh, dev).budget)),
+        ("sharded_sparse_membership_scan(exchange='ring'), n=1000000",
+         (SHARDS, SHARDS, 5,
+          sharded_sparse_plan(sparse_cfg(N_1M), mesh, dev).budget)),
+    ]
+
+
+def phase_ring_paths(dev) -> list:
+    """The rebuilt ring kernel at every path's shape, fed as the outbox
+    packer leaves its planes (one buffer, rows of ``outbox_pitch``) at
+    buffer offsets 0 and 1 (rows off 16-byte alignment): bit for bit
+    against its plain version; then the whole ``exchange_outbox`` on both
+    transports, the kernel alone (:func:`device_ms`), the plain version
+    and the one-call yardstick ``transpose(0, 1).contiguous()`` of the
+    stacked box."""
+    import torch
+
+    from consul_tpu_torch.ops import (
+        ring_exchange_planes,
+        ring_exchange_planes_plain,
+    )
+    from consul_tpu_torch.parallel import exchange_outbox, outbox_pitch
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for path, (d, _, c, budget) in ring_path_shapes(dev):
+        pitch = outbox_pitch(d, budget)
+        max_err = 0
+        for offset in (1, 0):
+            flat = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                 (c * d * pitch + offset,), generator=gen,
+                                 dtype=torch.int32, device=dev)
+            planes = flat[offset:].view(c, d, pitch)[..., :d * budget] \
+                .unflatten(-1, (d, budget)).unbind(0)
+            got = ring_exchange_planes(planes)
+            want = ring_exchange_planes_plain(planes)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                max_err = max(max_err, int((g.to(torch.int64)
+                                            - w.to(torch.int64))
+                                           .abs().max()))
+                check(torch.equal(g, w),
+                      f"ring kernel != plain at {path} offset {offset}")
+            del got, want
+        # Timed at offset 0, as pack_outbox leaves its buffer.
+        iters = 50 if budget < 200_000 else 20
+        box = torch.stack(planes, dim=2).contiguous()
+        row = {
+            "path": path, "shape": [d, d, c, budget], "max_abs_err": max_err,
+            "ms": cuda_ms(lambda: exchange_outbox(planes, "ring"), iters),
+            "alltoall_ms": cuda_ms(lambda: exchange_outbox(planes,
+                                                           "alltoall"),
+                                   iters),
+            "busy_ms": device_ms(lambda: ring_exchange_planes(planes)),
+            "plain_ms": cuda_ms(lambda: ring_exchange_planes_plain(planes),
+                                10, 3),
+            "library_ms": cuda_ms(lambda: box.transpose(0, 1).contiguous(),
+                                  iters),
+            "bound_ms": 2 * c * d * d * budget * 4 / PEAK_BYTES_PER_S * 1e3,
+        }
+        del box, planes, flat
+        log("ring path " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def _timed_scan(scan, dev):
+    """Run ``scan()`` fenced by synchronisation and the copy of its outputs
+    to the host: (final state, host outputs, wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    final, outs = scan()
+    torch.cuda.synchronize(dev)
+    outs = tuple(o.cpu().numpy() for o in outs)
+    return final, outs, time.perf_counter() - t0
+
+
+def phase_sharded_membership(dev, card: str, unsharded: dict) -> dict:
+    """The sharded membership studies over 8 logical shards, each with both
+    transports: ring == alltoall on every tick and in the final state, one
+    ring launch a tick, at most 2 host syncs a sparse tick (0 dense), the
+    detection invariants, and the unsharded run's outputs wherever both
+    overflows are 0.  Returns each ring study's kernel launches."""
+    import torch
+
+    from consul_tpu_torch.models import membership_init, sparse_membership_init
+    from consul_tpu_torch.ops import PRNGKey, host_cond, ring_exchange
+    from consul_tpu_torch.parallel import (
+        mesh_for,
+        sharded_membership_scan,
+        sharded_sparse_membership_scan,
+    )
+    from consul_tpu_torch.sim.metrics import MembershipReport
+
+    mesh = mesh_for(SHARDS, dev)
+    studies = (
+        ("membership_sparse_100k_cold_d8", "membership_sparse_100k_cold",
+         sparse_cfg(SPARSE_N), SPARSE_COLD_100K_STEPS),
+        ("membership_sparse_1m_cold_d8", "membership_sparse_1m_cold",
+         sparse_cfg(N_1M), SPARSE_COLD_1M_STEPS),
+        ("membership_dense_16k_d8", "membership_dense_16k",
+         sharded_dense_cfg(), DENSE_STEPS),
+    )
+    launches = {}
+    for tag, plain_tag, cfg, steps in studies:
+        sparse = hasattr(cfg, "base")
+        base = cfg.base if sparse else cfg
+
+        def scan(steps, exchange, cfg=cfg, sparse=sparse):
+            key = PRNGKey(0, device=dev)
+            if sparse:
+                return sharded_sparse_membership_scan(
+                    sparse_membership_init(cfg, device=dev), key, cfg, steps,
+                    mesh, (42,), exchange)
+            return sharded_membership_scan(membership_init(cfg, device=dev),
+                                           key, cfg, steps, mesh, (42,),
+                                           exchange)
+
+        runs = {}
+        for exchange in ("ring", "alltoall"):
+            scan(2, exchange)  # eager PyTorch compiles nothing: warm up
+            torch.cuda.reset_peak_memory_stats()
+            ring_exchange.launches = 0
+            syncs = host_cond.syncs
+            final, outs, wall = _timed_scan(lambda: scan(steps, exchange),
+                                            dev)
+            n_launch = ring_exchange.launches
+            per_tick = (host_cond.syncs - syncs) / steps
+            overflow = int(final.overflow) if sparse else int(outs[4])
+            rep = MembershipReport(
+                n=base.n, ticks=steps,
+                tick_ms=base.profile.gossip_interval_ms,
+                probe_interval_ms=base.profile.probe_interval_ms,
+                track=(42,), suspecting=outs[0], dead_known=outs[1],
+                suspect_cells=outs[2], known_members=outs[3], wall_s=wall,
+                overflow=overflow)
+            det = check_detection(rep, base, f"{tag}_{exchange}")
+            dead = rep.dead_known[:, 0]
+            hit = np.nonzero(dead >= 0.99 * (base.n - 1))[0]
+            membership_line(
+                f"{tag}_{exchange}", card, ticks=steps,
+                rounds_per_sec=rep.rounds_per_sec, wall_s=wall,
+                overflow=overflow,
+                forgotten=int(final.forgotten) if sparse else None, **det,
+                dead99_tick=int(hit[0]) if hit.size else None,
+                dead_known_final=int(dead[-1]),
+                suspect_cells_final=int(rep.suspect_cells[-1]),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                host_syncs_per_tick=per_tick, ring_launches=n_launch,
+                device=torch.cuda.get_device_name(dev))
+            check(per_tick <= (2 if sparse else 0),
+                  f"{tag}_{exchange}: {per_tick} host syncs a tick")
+            check(n_launch == (steps if exchange == "ring" else 0),
+                  f"{tag}_{exchange}: ring kernel launched {n_launch} times")
+            runs[exchange] = (final, outs[:4], overflow)
+            if exchange == "ring":
+                launches[tag] = n_launch
+        (f_ring, o_ring, ov_ring), (f_a2a, o_a2a, ov_a2a) = (
+            runs["ring"], runs["alltoall"])
+        for i, (a, b) in enumerate(zip(o_ring, o_a2a)):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"{tag}: output {i} ring != alltoall")
+        for name, a, b in zip(f_ring._fields, f_ring, f_a2a):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"{tag}: final {name} ring != alltoall")
+        check(ov_ring == ov_a2a, f"{tag}: overflow ring != alltoall")
+        del runs, f_ring, f_a2a
+        plain, plain_ov = unsharded[plain_tag]
+        fields = ("suspecting", "dead_known", "suspect_cells",
+                  "known_members")
+        same = all(np.array_equal(o, getattr(plain, f))
+                   for o, f in zip(o_ring, fields))
+        log(f"{tag}: ring == alltoall every tick and in the final state; "
+            f"overflow sharded {ov_ring}, unsharded {plain_ov}; per-tick "
+            f"outputs {'equal to' if same else 'differ from'} the unsharded "
+            "run")
+        if ov_ring == 0 and plain_ov == 0:
+            check(same, f"{tag}: overflow 0 but outputs != unsharded")
+    return launches
+
+
+def phase_sharded_parity(dev) -> None:
+    """Every sharded membership tick on the card against the CPU, both
+    twins, both transports, every field with its dtype and every output."""
+    import torch
+
+    from consul_tpu_torch import MembershipConfig, SparseMembershipConfig
+    from consul_tpu_torch.models import membership_init, sparse_membership_init
+    from consul_tpu_torch.parallel import (
+        mesh_for,
+        sharded_membership_plan,
+        sharded_membership_round,
+        sharded_sparse_membership_round,
+        sharded_sparse_plan,
+    )
+    from consul_tpu_torch.protocol import LAN
+
+    churn = MembershipConfig(n=SMALL_N, loss=0.2, profile=LAN,
+                             fail_at=((5, 3), (100, 5), (2000, 8)),
+                             leave_at=((77, 10),))
+    dense = MembershipConfig(n=512, loss=0.2, profile=LAN,
+                             fail_at=((5, 3), (17, 8)), leave_at=((30, 12),))
+    for exchange in ("ring", "alltoall"):
+        for tag, cfg, init, plan_of, rnd, steps in (
+                (f"sharded_sparse_k16_n{SMALL_N}_{exchange}",
+                 SparseMembershipConfig(churn, k_slots=16),
+                 sparse_membership_init, sharded_sparse_plan,
+                 sharded_sparse_membership_round, 30),
+                (f"sharded_dense_512_{exchange}", dense, membership_init,
+                 sharded_membership_plan, sharded_membership_round, 40)):
+            plans = {where: plan_of(cfg, mesh_for(SHARDS), where, (5,),
+                                    exchange) for where in ("cpu", dev)}
+            _step_parity(tag, init(cfg, device=dev),
+                         lambda st, k, c=cfg, r=rnd, p=plans: r(
+                             st, k, c, p["cpu" if k.device.type == "cpu"
+                                         else dev]),
+                         dev, steps, 3)
+
+
 def main() -> int:
     import torch
 
@@ -1142,42 +1378,49 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     card = phase_card()
-    ring = phase_ring_kernel(dev)
+    ring_err = phase_ring_kernel(dev)
     phase_threefry(dev)
-    ring["launches"] = phase_slice(dev, card)
+    broadcast_launches = phase_slice(dev, card)
     phase_swim(dev, card)
     phase_lifeguard(dev, card)
-    phase_membership(dev, card)
+    membership_reports = phase_membership(dev, card)
     phase_membership_parity(dev)
     phase_small_parity(dev)
     t7 = time.perf_counter()
-    geo_kernel = phase_geo_kernel(dev)
+    geo_err = phase_geo_kernel(dev)
     latency = phase_geo_latency(dev)
     phase_multidc(dev, card)
     geo_launches = phase_geo(dev, card, latency)
     phase_geo_parity(dev, latency)
     log(f"geo slice phase passed in {time.perf_counter() - t7:.1f} s")
+    t8 = time.perf_counter()
+    paths = phase_ring_paths(dev)
+    study_launches = phase_sharded_membership(dev, card, membership_reports)
+    phase_sharded_parity(dev)
+    log(f"sharded membership phase passed in {time.perf_counter() - t8:.1f}"
+        " s")
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
-    # The slice's own ring path (the geo outbox) heads the line; the
-    # broadcast path's shape and launches stay beside it.
-    kernel = {**ring, **{k: geo_kernel[k] for k in (
-        "ms", "plain_ms", "bound_ms", "library_ms")},
-        "launches": geo_launches,
-        "max_abs_err": max(ring["max_abs_err"], geo_kernel["max_abs_err"]),
-        "paths": [
-            {"path": "sharded_broadcast_scan(exchange='ring')",
-             "shape": [SHARDS, SHARDS, 1, ring["budget"]],
-             "launches": ring["launches"], "ms": ring["ms"],
-             "plain_ms": ring["plain_ms"], "bound_ms": ring["bound_ms"],
-             "library_ms": ring["library_ms"]},
-            {"path": "sharded_geo_scan(exchange='ring')",
-             "shape": geo_kernel["shape"], "launches": geo_launches,
-             "ms": geo_kernel["ms"], "plain_ms": geo_kernel["plain_ms"],
-             "bound_ms": geo_kernel["bound_ms"],
-             "library_ms": geo_kernel["library_ms"]},
-        ]}
-    kernel.pop("budget")
+    # Every ring path with the launches of the study that drives it; the
+    # largest (the sparse 1M outbox) heads the line.
+    for row, n_launch in zip(paths, (
+            broadcast_launches, geo_launches,
+            study_launches["membership_dense_16k_d8"],
+            study_launches["membership_sparse_100k_cold_d8"],
+            study_launches["membership_sparse_1m_cold_d8"])):
+        row["launches"] = n_launch
+    head = paths[-1]
+    kernel = {
+        "name": "ring_exchange", "route": "cuda",
+        "source": "consul_tpu_torch/csrc/ring_exchange.cu",
+        "replaces": "consul_tpu/ops/ring_exchange.py:67",
+        "launches": head["launches"],
+        "max_abs_err": max([ring_err, geo_err]
+                           + [p["max_abs_err"] for p in paths]),
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes", "library_ms": head["library_ms"],
+        "paths": paths,
+    }
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -262,29 +262,62 @@ def _set_cols(plane: torch.Tensor, col: torch.Tensor, apply: torch.Tensor,
     return plane.scatter(1, idx, new[:, None])
 
 
-def membership_round(state: MembershipState, key_rng: torch.Tensor,
-                     cfg: MembershipConfig,
-                     consts: MembershipConstants | None = None
-                     ) -> MembershipState:
-    """One tick.  ``consts`` is :func:`membership_constants` of ``cfg``,
-    built here when not given."""
+def track_outputs(steps: int, n_track: int, known_dtype, device):
+    """Preallocated per-tick outputs of the membership scans: suspecting
+    and dead_known [steps, S], suspect_cells and known_members [steps]."""
+    return (torch.empty((steps, n_track), dtype=torch.int32, device=device),
+            torch.empty((steps, n_track), dtype=torch.int32, device=device),
+            torch.empty(steps, dtype=torch.int32, device=device),
+            torch.empty(steps, dtype=known_dtype, device=device))
+
+
+def membership_counts(key_m: torch.Tensor, track_idx: torch.Tensor):
+    """A dense tick's outputs: for each tracked subject the observers
+    viewing it SUSPECT / DEAD (int32[S] each), the global count of suspect
+    cells and the sum of membership-list sizes (int32 scalars)."""
+    ranks = key_rank(key_m)
+    cols = ranks[:, track_idx]
+    return (torch.sum(cols == RANK_SUSPECT, dim=0, dtype=torch.int32),
+            torch.sum(cols == RANK_DEAD, dim=0, dtype=torch.int32),
+            torch.sum(ranks == RANK_SUSPECT, dtype=torch.int32),
+            torch.sum((key_m >= 0) & (ranks <= RANK_SUSPECT),
+                      dtype=torch.int32))
+
+
+class GossipStage(NamedTuple):
+    """What the first stage of a tick leaves for the delivery: the site
+    keys, the tick's ground truth, the re-stamped view and queue, and the
+    gossip packets (``subj``/``msg_key``/``msg_valid`` [n, m] drained
+    messages, ``targets``/``packet_ok`` [n, F])."""
+
+    keys: tuple
+    present: torch.Tensor
+    leaving: torch.Tensor
+    participates: torch.Tensor
+    key_m: torch.Tensor
+    tx: torch.Tensor
+    subj: torch.Tensor
+    msg_key: torch.Tensor
+    msg_valid: torch.Tensor
+    targets: torch.Tensor
+    packet_ok: torch.Tensor
+
+
+def gossip_stage(state: MembershipState, key_rng: torch.Tensor,
+                 cfg: MembershipConfig,
+                 consts: MembershipConstants) -> GossipStage:
+    """The leave re-stamp and the gossip packets of a tick.  Every draw is
+    keyed by global node id, so the sharded twin builds the same packets."""
     n, fanout = cfg.n, cfg.fanout
     m = min(cfg.piggyback, n)
-    dev = state.key.device
-    if consts is None:
-        consts = membership_constants(cfg, dev)
     t = state.tick
-    (k_tie, k_tgt, k_loss, k_pp, k_ppsel, k_probe,
-     k_pfail) = split(key_rng, 7).unbind(-2)
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
-    amax = cfg.profile.awareness_max_multiplier - 1
+    keys = split(key_rng, 7).unbind(-2)
+    k_tie, k_tgt, k_loss = keys[:3]
+    own_inc = state.own_inc
 
     present, leaving, participates = ground_truth(
         t, consts.fail_tick, consts.leave_tick, consts.join_tick,
         cfg.leave_grace_ticks)
-
-    own_inc = state.own_inc
-    awareness = state.awareness
 
     # Leave intent: the leaver re-stamps its self-view LEFT at its own
     # incarnation and gossips it; the self-view never regresses.
@@ -311,13 +344,69 @@ def membership_round(state: MembershipState, key_rng: torch.Tensor,
     packet_ok = (participates[:, None] & tgt_sendable
                  & bernoulli_mask(k_loss, (n, fanout), 1.0 - cfg.loss)
                  & participates[targets])
+    return GossipStage(keys, present, leaving, participates, key_m, tx, subj,
+                       msg_key, msg_valid, targets, packet_ok)
+
+
+def spend_gossip(g: GossipStage, fanout: int) -> torch.Tensor:
+    """The queue after the gossip: one transmission per target packet per
+    drained message, spent whether or not the packet survived
+    (queue.go:288-373); the drained columns of a row are distinct."""
+    spend = torch.where(g.msg_valid, fanout, 0).to(torch.int32)
+    tx = g.tx.scatter(1, g.subj, torch.gather(g.tx, 1, g.subj) - spend)
+    return torch.clamp(tx, min=0)
+
+
+def push_pull_draws(g: GossipStage, cfg: MembershipConfig):
+    """(partner, pp_ok) of the push/pull anti-entropy: who initiates an
+    exchange this tick, and with whom."""
+    n = cfg.n
+    k_pp, k_ppsel = g.keys[3:5]
+    key_m = g.key_m
+    known_cnt = torch.sum(
+        (key_m >= 0) & (key_rank(key_m) <= RANK_SUSPECT), dim=1)
+    # A node that knows only itself (a joiner) syncs at once.
+    needs_join = g.participates & (known_cnt <= 1)
+    initiate = g.participates & (
+        needs_join | bernoulli_mask(k_pp, (n,), 1.0 / cfg.push_pull_ticks)
+    )
+    partner = sample_probe_targets(k_ppsel, n).long()
+    return partner, initiate & g.participates[partner]
+
+
+def push_pull_full(key_rx: torch.Tensor, key_m: torch.Tensor,
+                   partner: torch.Tensor, pp_ok: torch.Tensor) -> None:
+    """Merge every exchange into ``key_rx`` ([n + 1, n], the last row a
+    sink), in place: the initiator merges the partner's row (pull), the
+    partner the initiator's (push), as cellwise maxima."""
+    n = key_m.shape[0]
+    key_rx[:n] = torch.maximum(
+        key_rx[:n], torch.where(pp_ok[:, None], key_m[partner], -1))
+    # Push: a row scatter-max; idle initiators point at the spare row.
+    prow = torch.where(pp_ok, partner, n)
+    key_rx.scatter_reduce_(0, prow[:, None].expand(n, n), key_m, "amax")
+
+
+def membership_round(state: MembershipState, key_rng: torch.Tensor,
+                     cfg: MembershipConfig,
+                     consts: MembershipConstants | None = None
+                     ) -> MembershipState:
+    """One tick.  ``consts`` is :func:`membership_constants` of ``cfg``,
+    built here when not given."""
+    n, fanout = cfg.n, cfg.fanout
+    m = min(cfg.piggyback, n)
+    dev = state.key.device
+    if consts is None:
+        consts = membership_constants(cfg, dev)
+    g = gossip_stage(state, key_rng, cfg, consts)
+    targets = g.targets
 
     # key_rx[r, s] = max key among arriving messages about s at r, in a
     # [n + 1, n] buffer whose last row takes every dropped message.
-    ok3 = packet_ok[:, :, None] & msg_valid[:, None, :]
-    flat = torch.where(ok3, targets[:, :, None] * n + subj[:, None, :],
+    ok3 = g.packet_ok[:, :, None] & g.msg_valid[:, None, :]
+    flat = torch.where(ok3, targets[:, :, None] * n + g.subj[:, None, :],
                        n * n).reshape(-1)
-    val3 = msg_key[:, None, :].expand(n, fanout, m).reshape(-1)
+    val3 = g.msg_key[:, None, :].expand(n, fanout, m).reshape(-1)
     key_rx = torch.full(((n + 1) * n,), -1, dtype=torch.int32, device=dev)
     key_rx.scatter_reduce_(0, flat, val3, "amax")
     sus_val = torch.where(key_rank(val3) == RANK_SUSPECT, key_inc(val3), -1)
@@ -326,34 +415,30 @@ def membership_round(state: MembershipState, key_rng: torch.Tensor,
     sus_inc_rx.scatter_reduce_(0, flat, sus_val, "amax")
     key_rx = key_rx.view(n + 1, n)
     sus_inc_rx = sus_inc_rx.view(n + 1, n)[:n]
-
-    # One transmission per target packet per drained message, spent
-    # whether or not the packet survived (queue.go:288-373); the drained
-    # columns of a row are distinct.
-    spend = torch.where(msg_valid, fanout, 0).to(torch.int32)
-    tx = tx.scatter(1, subj, torch.gather(tx, 1, subj) - spend)
-    tx = torch.clamp(tx, min=0)
+    tx = spend_gossip(g, fanout)
 
     # 2. Push/pull anti-entropy: initiators exchange full state with one
     #    partner; both sides merge the cellwise max of the two rows.
     if cfg.push_pull_enabled:
-        known_cnt = torch.sum(
-            (key_m >= 0) & (key_rank(key_m) <= RANK_SUSPECT), dim=1)
-        # A node that knows only itself (a joiner) syncs at once.
-        needs_join = participates & (known_cnt <= 1)
-        initiate = participates & (
-            needs_join | bernoulli_mask(k_pp, (n,), 1.0 / cfg.push_pull_ticks)
-        )
-        partner = sample_probe_targets(k_ppsel, n).long()
-        pp_ok = initiate & participates[partner]
-        # Pull: the initiator merges the partner's row.
-        key_rx[:n] = torch.maximum(
-            key_rx[:n], torch.where(pp_ok[:, None], key_m[partner], -1))
-        # Push: the partner merges the initiator's row (row scatter-max;
-        # idle initiators point at the spare last row).
-        prow = torch.where(pp_ok, partner, n)
-        key_rx.scatter_reduce_(0, prow[:, None].expand(n, n), key_m, "amax")
-    key_rx = key_rx[:n]
+        push_pull_full(key_rx, g.key_m, *push_pull_draws(g, cfg))
+    return finish_round(state, g, tx, key_rx[:n], sus_inc_rx, cfg, consts)
+
+
+def finish_round(state: MembershipState, g: GossipStage, tx: torch.Tensor,
+                 key_rx: torch.Tensor, sus_inc_rx: torch.Tensor,
+                 cfg: MembershipConfig,
+                 consts: MembershipConstants) -> MembershipState:
+    """Refutation, the merge of the tick's deliveries (``key_rx``,
+    ``sus_inc_rx`` [n, n], -1 where nothing arrived; ``key_rx`` is
+    written), the probe plane and suspicion expiry."""
+    n = cfg.n
+    t = state.tick
+    k_probe, k_pfail = g.keys[5:7]
+    amax = cfg.profile.awareness_max_multiplier - 1
+    present, leaving, participates = g.present, g.leaving, g.participates
+    own_inc = state.own_inc
+    awareness = state.awareness
+    key_m = g.key_m
 
     # 3. Refutation: a node that hears itself suspected or declared dead
     #    at >= its incarnation re-asserts aliveness at accused + 1 and

@@ -35,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from consul_tpu_torch.device import device_scalar, resolve_device
@@ -305,12 +306,15 @@ def _add_capped(counter: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 def _merge_arrivals(slots: tuple, recv, subj, val, sus, ok, alloc, n: int,
                     K: int, overflow, forgotten, row_ids=None,
-                    amortize: bool = True):
+                    amortize: bool = True, segments: int = 1):
     """The delivery pipeline on ``merge_into_rows``: only settled cells may
     be claimed, evicting one whose key is not the default counts into
     ``forgotten``, allocation-worthy news without a slot into
-    ``overflow``.  Returns (slots, key_rx, sus_rx, overflow, forgotten);
-    rows come back sorted, so positional handles must be re-derived."""
+    ``overflow``.  ``segments``: the stream is that many equal per-shard
+    streams, each with its own allocation budget (``merge_into_rows``'s
+    ``alloc_segments``).  Returns (slots, key_rx, sus_rx, overflow,
+    forgotten); rows come back sorted, so positional handles must be
+    re-derived."""
     slot_subj, key_m, since, conf, tx = slots
     new_subj, planes, key_rx, sus_rx, dropped, forgot = merge_into_rows(
         slot_subj, (key_m, since, conf, tx), _PLANE_DEFAULTS,
@@ -318,6 +322,7 @@ def _merge_arrivals(slots: tuple, recv, subj, val, sus, ok, alloc, n: int,
         evictable=_settled_blocks(row_ids), remembers=_remembers_blocks(),
         default_val=DEFAULT_KEY, allocate=K < n,
         alloc_budget=_ALLOC_BUDGET, amortize=amortize,
+        alloc_segments=segments,
     )
     return ((new_subj, *planes), key_rx, sus_rx,
             _add_capped(overflow, dropped), _add_capped(forgotten, forgot))
@@ -510,26 +515,40 @@ def _flat_stream(parts):
     return tuple(torch.cat([p[i] for p in parts]) for i in range(6))
 
 
-def sparse_membership_round(state: SparseMembershipState,
-                            key_rng: torch.Tensor,
-                            cfg: SparseMembershipConfig,
-                            consts: SparseConstants | None = None
-                            ) -> SparseMembershipState:
-    """One tick, step for step the dense round over the slot
-    representation (the same draws in the same shapes at K == n)."""
+class SparseGossip(NamedTuple):
+    """What the first stage of a sparse tick leaves for the delivery: the
+    site keys, the tick's ground truth, the re-stamped key and queue
+    planes, and the gossip packets (``sslot``/``msg_subj``/``msg_key``/
+    ``msg_valid`` [n, M], ``targets``/``packet_ok`` [n, F])."""
+
+    keys: tuple
+    leaving: torch.Tensor
+    participates: torch.Tensor
+    key_m: torch.Tensor
+    tx: torch.Tensor
+    sslot: torch.Tensor
+    msg_subj: torch.Tensor
+    msg_key: torch.Tensor
+    msg_valid: torch.Tensor
+    targets: torch.Tensor
+    packet_ok: torch.Tensor
+
+
+def sparse_gossip_stage(state: SparseMembershipState, key_rng: torch.Tensor,
+                        cfg: SparseMembershipConfig,
+                        consts: SparseConstants) -> SparseGossip:
+    """The self-view re-stamp and the gossip packets of a tick.  Every draw
+    is keyed by global node id, so the sharded twin builds the same
+    packets."""
     base = cfg.base
     n, fanout = base.n, base.fanout
     K = state.key.shape[1]
     M = min(base.piggyback, K)
     dev = state.key.device
-    if consts is None:
-        consts = sparse_constants(cfg, dev)
-    amortize = cfg.amortize is not False
     t = state.tick
-    (k_tie, k_tgt, k_loss, k_pp, k_ppsel, k_probe,
-     k_pfail) = split(key_rng, 7).unbind(-2)
+    keys = split(key_rng, 7).unbind(-2)
+    k_tie, k_tgt, k_loss = keys[:3]
     rows = torch.arange(n, dtype=torch.int32, device=dev)
-    amax = base.profile.awareness_max_multiplier - 1
 
     _, leaving, participates = ground_truth(
         t, consts.fail_tick, consts.leave_tick, consts.join_tick,
@@ -537,9 +556,6 @@ def sparse_membership_round(state: SparseMembershipState,
 
     slot_subj = state.slot_subj
     own_inc = state.own_inc
-    awareness = state.awareness
-    overflow = state.overflow
-
     occupied = slot_subj >= 0
     self_slot = row_locate(slot_subj, rows, rows)  # the self slot is pinned
 
@@ -567,6 +583,57 @@ def sparse_membership_round(state: SparseMembershipState,
     packet_ok = (participates[:, None] & tgt_sendable
                  & bernoulli_mask(k_loss, (n, fanout), 1.0 - base.loss)
                  & participates[targets.long()])
+    return SparseGossip(keys, leaving, participates, key_m, tx, sslot,
+                        msg_subj, msg_key, msg_valid, targets, packet_ok)
+
+
+def sparse_spend(g: SparseGossip, msg_valid: torch.Tensor,
+                 fanout: int) -> torch.Tensor:
+    """The tx plane after the gossip of ``msg_valid`` (the drained slots of
+    a row are distinct: gather, subtract, write)."""
+    spend = torch.where(msg_valid, fanout, 0).to(g.tx.dtype)
+    tx = g.tx.scatter(1, g.sslot, torch.gather(g.tx, 1, g.sslot) - spend)
+    return torch.clamp(tx, min=0)
+
+
+def sparse_push_pull_draws(g: SparseGossip, slot_subj: torch.Tensor,
+                           base: MembershipConfig):
+    """(partner, pp_ok) of the push/pull exchange; absent slots read
+    alive, so a row's known count is n minus its dead cells."""
+    n = base.n
+    k_pp, k_ppsel = g.keys[3:5]
+    dead_cnt = torch.sum((slot_subj >= 0)
+                         & (key_rank(g.key_m) > RANK_SUSPECT),
+                         dim=1, dtype=torch.int32)
+    known_cnt = n - dead_cnt
+    needs_join = g.participates & (known_cnt <= 1)
+    initiate = g.participates & (
+        needs_join | bernoulli_mask(k_pp, (n,), 1.0 / base.push_pull_ticks))
+    partner = sample_probe_targets(k_ppsel, n)
+    return partner, initiate & g.participates[partner.long()]
+
+
+def sparse_membership_round(state: SparseMembershipState,
+                            key_rng: torch.Tensor,
+                            cfg: SparseMembershipConfig,
+                            consts: SparseConstants | None = None
+                            ) -> SparseMembershipState:
+    """One tick, step for step the dense round over the slot
+    representation (the same draws in the same shapes at K == n)."""
+    base = cfg.base
+    n, fanout = base.n, base.fanout
+    K = state.key.shape[1]
+    M = min(base.piggyback, K)
+    dev = state.key.device
+    if consts is None:
+        consts = sparse_constants(cfg, dev)
+    amortize = cfg.amortize is not False
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    g = sparse_gossip_stage(state, key_rng, cfg, consts)
+    slot_subj, key_m = state.slot_subj, g.key_m
+    targets, packet_ok = g.targets, g.packet_ok
+    msg_subj, msg_key, msg_valid = g.msg_subj, g.msg_key, g.msg_valid
+    overflow = state.overflow
 
     if K < n:
         # Compacted emission: senders with a live message take one of S_b
@@ -586,25 +653,13 @@ def sparse_membership_round(state: SparseMembershipState,
     else:
         g_targets, g_packet_ok = targets, packet_ok
         g_msg_subj, g_msg_key, g_msg_valid = msg_subj, msg_key, msg_valid
-
-    # The drained slots of a row are distinct: gather, subtract, write.
-    spend = torch.where(msg_valid, fanout, 0).to(tx.dtype)
-    tx = tx.scatter(1, sslot, torch.gather(tx, 1, sslot) - spend)
-    tx = torch.clamp(tx, min=0)
+    tx = sparse_spend(g, msg_valid, fanout)
 
     # -- 2. push/pull ------------------------------------------------------
     pp_sel = None
     pp_full = None
     if base.push_pull_enabled:
-        dead_cnt = torch.sum(occupied & (key_rank(key_m) > RANK_SUSPECT),
-                             dim=1, dtype=torch.int32)
-        known_cnt = n - dead_cnt  # absent slots read alive
-        needs_join = participates & (known_cnt <= 1)
-        initiate = participates & (
-            needs_join
-            | bernoulli_mask(k_pp, (n,), 1.0 / base.push_pull_ticks))
-        partner = sample_probe_targets(k_ppsel, n)
-        pp_ok = initiate & participates[partner.long()]
+        partner, pp_ok = sparse_push_pull_draws(g, slot_subj, base)
         if K < n:
             # Compacted exchange: initiators take one of I slots in index
             # order; the rest lose this tick's exchange into overflow.
@@ -643,22 +698,54 @@ def sparse_membership_round(state: SparseMembershipState,
             partner, pp_ok = pp_full
             legs = ((rows, partner, pp_ok), (partner, rows, pp_ok))
         for dst, src, on in legs or ():
-            subj_l = slot_subj[src.long()].reshape(-1)
-            val_l = key_m[src.long()].reshape(-1)
-            # Settled alive@inc rows merge into existing slots but never
-            # allocate (the evict-relearn loop); suspect/dead/left news
-            # stays allocation-worthy.
-            parts.append((
-                dst[:, None].expand(-1, K).reshape(-1), subj_l, val_l,
-                torch.full_like(subj_l, -1),
-                on[:, None].expand(-1, K).reshape(-1) & (subj_l >= 0),
-                key_rank(val_l) >= RANK_SUSPECT,
-            ))
+            parts.append(push_pull_leg(slot_subj, key_m, dst, src, on))
         recv, subj, val, sus, ok, alloc = _flat_stream(parts)
         slots_t, key_rx, sus_rx, overflow, forgotten = _merge_arrivals(
             slots_in, recv, subj, val, sus, ok, alloc, n, K, overflow,
             state.forgotten, amortize=amortize)
+    return sparse_finish_round(state, g, slots_t, key_rx, sus_rx, overflow,
+                               forgotten, cfg, consts)
+
+
+def push_pull_leg(slot_subj: torch.Tensor, key_m: torch.Tensor,
+                  dst: torch.Tensor, src: torch.Tensor, on: torch.Tensor):
+    """One push/pull leg as an arrival stream ``(recv, subj, val, sus, ok,
+    alloc)``: row ``src[i]``'s slots flow to ``dst[i]`` where ``on[i]``.
+    Settled alive@inc rows merge into existing slots but never allocate
+    (the evict-relearn loop); suspect/dead/left news stays
+    allocation-worthy.  Leading dimensions of ``dst``/``src``/``on`` are
+    kept (the sharded plane's shards), the slots flattened after them."""
+    K = slot_subj.shape[1]
+    subj_l = slot_subj[src.long()].flatten(-2)
+    val_l = key_m[src.long()].flatten(-2)
+    return (dst[..., None].expand(*dst.shape, K).flatten(-2), subj_l, val_l,
+            torch.full_like(subj_l, -1),
+            on[..., None].expand(*on.shape, K).flatten(-2) & (subj_l >= 0),
+            key_rank(val_l) >= RANK_SUSPECT)
+
+
+def sparse_finish_round(state: SparseMembershipState, g: SparseGossip,
+                        slots_t: tuple, key_rx: torch.Tensor,
+                        sus_rx: torch.Tensor, overflow: torch.Tensor,
+                        forgotten: torch.Tensor,
+                        cfg: SparseMembershipConfig,
+                        consts: SparseConstants) -> SparseMembershipState:
+    """Refutation and merge of the delivered ``key_rx``/``sus_rx`` into the
+    merged slot table ``slots_t``, the probe plane (with its slot claim)
+    and suspicion expiry: steps 3-6 of the round."""
+    base = cfg.base
+    n = base.n
+    K = state.key.shape[1]
+    dev = state.key.device
+    amortize = cfg.amortize is not False
+    t = state.tick
+    k_probe, k_pfail = g.keys[5:7]
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    amax = base.profile.awareness_max_multiplier - 1
+    participates, leaving = g.participates, g.leaving
     slot_subj, key_m, suspect_since, confirms, tx = slots_t
+    own_inc = state.own_inc
+    awareness = state.awareness
     # The merge re-sorts rows when it allocates: re-locate the self slot.
     self_slot = row_locate(slot_subj, rows, rows)
 
@@ -752,6 +839,43 @@ def sparse_membership_round(state: SparseMembershipState,
         probe_pending_at=probe_pending_at, probe_subject=probe_subject,
         overflow=overflow, forgotten=forgotten, tick=t + 1,
     )
+
+
+def n_squared(n: int, device) -> torch.Tensor:
+    """float32 ``f32(n) * n``, the known-members gauge's full count."""
+    return torch.full((), float(np.float32(n) * np.float32(n)),
+                      dtype=torch.float32, device=device)
+
+
+def sparse_membership_counts(state: SparseMembershipState,
+                             track_idx: torch.Tensor, n_sq: torch.Tensor,
+                             n_shards: int = 1):
+    """A sparse tick's outputs, matched by subject id (so they do not
+    depend on the row order): for each tracked subject the slots holding
+    it SUSPECT / DEAD (int32[S] each, empty without tracked subjects), the
+    suspect slots (int32), and the float32 gauge ``n_sq - dead_cells``.
+    Over ``n_shards`` row blocks the dead cells are summed per block, then
+    across blocks, as the sharded reference's ``psum`` does."""
+    ranks = key_rank(state.key)
+    if track_idx.numel():
+        hit = state.slot_subj[:, :, None] == track_idx[None, None, :]
+        sus_t = torch.sum(hit & (ranks == RANK_SUSPECT)[:, :, None],
+                          dim=(0, 1), dtype=torch.int32)
+        dead_t = torch.sum(hit & (ranks == RANK_DEAD)[:, :, None],
+                           dim=(0, 1), dtype=torch.int32)
+    else:
+        sus_t = dead_t = torch.zeros((0,), dtype=torch.int32,
+                                     device=ranks.device)
+    occupied = state.slot_subj >= 0
+    dead = occupied & (ranks > RANK_SUSPECT)
+    if n_shards == 1:
+        dead_cells = torch.sum(dead, dtype=torch.float32)
+    else:
+        dead_cells = torch.sum(torch.sum(dead.view(n_shards, -1), dim=1,
+                                         dtype=torch.float32))
+    return (sus_t, dead_t,
+            torch.sum(occupied & (ranks == RANK_SUSPECT), dtype=torch.int32),
+            n_sq - dead_cells)
 
 
 def converged_state(cfg: SparseMembershipConfig, dead: int, tick: int = 200,

@@ -7,6 +7,8 @@ from consul_tpu_torch.ops.compact import compact_to_budget
 from consul_tpu_torch.ops.ring_exchange import (
     ring_exchange,
     ring_exchange_plain,
+    ring_exchange_planes,
+    ring_exchange_planes_plain,
 )
 from consul_tpu_torch.ops.sampling import (
     aggregate_arrivals,
@@ -72,6 +74,8 @@ __all__ = [
     "random_bits",
     "ring_exchange",
     "ring_exchange_plain",
+    "ring_exchange_planes",
+    "ring_exchange_planes_plain",
     "row_locate",
     "row_locate_lo",
     "sample_peers",

@@ -5,13 +5,18 @@ each shard's outbox rows to their destination chips in D-1 remote-DMA
 hops (hop h: shard ``me`` sends row ``(me+h) % D`` into row ``me`` of
 that shard's inbox; the self row is a local copy), which yields exactly
 the ``lax.all_to_all`` layout.  One H100 holds all D shards, so the
-stacked outboxes ``box[src, dst, C, budget]`` become the inbox layout
-``inbox[dst, src, C, budget]`` in one launch of the CUDA kernel
-``csrc/ring_exchange.cu``: D*D row-block copies in the same hop order.
+exchange is D*D segment copies per payload plane in the same hop order,
+one launch of the CUDA kernel ``csrc/ring_exchange.cu`` for all C planes.
 
-:func:`ring_exchange` launches the kernel for a CUDA tensor and takes
-the plain version :func:`ring_exchange_plain` only for a CPU tensor.
-``ring_exchange.launches`` counts kernel launches.
+:func:`ring_exchange_planes` is the exchange as the sharded plane calls
+it: C outbox planes ``[D_src, D_dst, budget]`` (any row pitch, as
+``parallel.shard.pack_outbox`` leaves them) become C inboxes ``[D_dst,
+D_src*budget]``.  :func:`ring_exchange` is the reference's box form,
+``box[src, dst, C, budget] -> inbox[dst, src, C, budget]``, as a thin call
+of the same launch.  Each launches the kernel for CUDA tensors and takes
+its plain version (:func:`ring_exchange_planes_plain`,
+:func:`ring_exchange_plain`) only for CPU tensors.  Both count their
+launches in ``ring_exchange.launches``.
 """
 
 from __future__ import annotations
@@ -22,10 +27,9 @@ import torch
 
 from consul_tpu_torch.ops import _build
 
-# Enough chunks per row that the grid holds about this many blocks
-# (several per SM), but no chunk under 1024 int32.
-_TARGET_BLOCKS = 1024
-_MIN_CHUNK = 1024
+MAX_PLANES = 8  # pointer slots in the kernel's by-value parameter struct
+
+_launch_fn = None
 
 
 def ring_exchange_plain(box: torch.Tensor) -> torch.Tensor:
@@ -40,6 +44,22 @@ def ring_exchange_plain(box: torch.Tensor) -> torch.Tensor:
     return inbox
 
 
+def ring_exchange_planes_plain(planes) -> tuple:
+    """The plain version of :func:`ring_exchange_planes`: per plane, shard
+    ``me`` and hop ``h``, ``out[dst, me*budget:(me+1)*budget] =
+    plane[me, dst]`` with ``dst = (me+h) % D``."""
+    d, _, budget = planes[0].shape
+    outs = []
+    for p in planes:
+        out = torch.empty((d, d * budget), dtype=p.dtype, device=p.device)
+        for me in range(d):
+            for h in range(d):
+                dst = (me + h) % d
+                out[dst, me * budget:(me + 1) * budget] = p[me, dst]
+        outs.append(out)
+    return tuple(outs)
+
+
 def _check_box(box: torch.Tensor) -> None:
     if box.dtype != torch.int32:
         raise TypeError(f"ring_exchange takes int32, got {box.dtype}")
@@ -51,21 +71,100 @@ def _check_box(box: torch.Tensor) -> None:
         raise ValueError("ring_exchange takes a contiguous box")
 
 
+def _check_planes(planes) -> None:
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(
+            f"ring_exchange_planes takes 1 to {MAX_PLANES} planes, got "
+            f"{len(planes)}"
+        )
+    p0 = planes[0]
+    if p0.dtype != torch.int32:
+        raise TypeError(f"ring_exchange_planes takes int32, got {p0.dtype}")
+    if p0.dim() != 3 or p0.shape[0] != p0.shape[1] or p0.stride(2) != 1:
+        raise ValueError(
+            "ring_exchange_planes takes planes [D, D, budget] with unit "
+            f"stride along budget, got {tuple(p0.shape)} {p0.stride()}"
+        )
+    if p0.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"ring_exchange runs on cpu or cuda, not {p0.device}"
+        )
+    def like(q):
+        return q.dtype, q.shape, q.stride(), q.device
+
+    if any(like(q) != like(p0) for q in planes[1:]):
+        raise ValueError(
+            "ring_exchange_planes takes planes of one dtype, shape, stride "
+            f"and device, got {[like(q) for q in planes]}"
+        )
+
+
 def _launch_lib():
-    lib = _build.load("ring_exchange")
-    fn = lib.ring_exchange_launch
-    if fn.argtypes is None:
+    global _launch_fn
+    if _launch_fn is None:
+        fn = _build.load("ring_exchange").ring_exchange_planes_launch
         # Without argtypes ctypes passes each Python int as a 32-bit int
         # and cuts the pointers.
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                       *(ctypes.c_longlong,) * 5, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        _launch_fn = fn
+    return _launch_fn
+
+
+def _launch(src_ptrs, src_strides, out_ptrs, out_strides, d: int,
+            budget: int, device: torch.device) -> None:
+    """One kernel launch on the current stream of ``device``: plane c's
+    segment ``(me, dst)`` of ``budget`` int32 at ``src_ptrs[c] + me *
+    src_strides[0] + dst * src_strides[1]`` (in words) goes to
+    ``out_ptrs[c] + dst * out_strides[0] + me * out_strides[1]``."""
+    c = len(src_ptrs)
+    arr = ctypes.c_void_p * c
+    launch = _launch_lib()
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        rc = launch(c, arr(*src_ptrs), arr(*out_ptrs), d, budget,
+                    *src_strides, *out_strides,
+                    torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(device):
+            rc = launch(c, arr(*src_ptrs), arr(*out_ptrs), d, budget,
+                        *src_strides, *out_strides,
+                        torch._C._cuda_getCurrentRawStream(idx))
+    if rc != 0:
+        raise RuntimeError(f"ring_exchange kernel launch failed: cudaError {rc}")
+    ring_exchange.launches += 1
+
+
+def ring_exchange_planes(planes) -> tuple:
+    """int32 outbox planes ``[D_src, D_dst, budget]`` (one stride for all,
+    unit stride along budget) -> inboxes ``[D_dst, D_src*budget]`` with
+    ``out[dst, src*budget:(src+1)*budget] = plane[src, dst]``: the
+    ``lax.all_to_all`` layout, all planes in one launch.  The inboxes are
+    the planes of one ``[C, D, D*budget]`` tensor.
+
+    CPU tensors go through :func:`ring_exchange_planes_plain`; CUDA
+    tensors launch the kernel on the current stream or raise."""
+    _check_planes(planes)
+    p0 = planes[0]
+    if p0.device.type == "cpu":
+        return ring_exchange_planes_plain(planes)
+    d, _, budget = p0.shape
+    c = len(planes)
+    out = torch.empty((c, d, d * budget), dtype=torch.int32, device=p0.device)
+    if budget and d:
+        base, size = out.data_ptr(), d * d * budget * 4
+        _launch([p.data_ptr() for p in planes], p0.stride()[:2],
+                [base + i * size for i in range(c)], (d * budget, budget),
+                d, budget, p0.device)
+    return out.unbind(0)
 
 
 def ring_exchange(box: torch.Tensor) -> torch.Tensor:
     """int32 ``box[D_src, D_dst, C, budget]`` -> ``inbox[D_dst, D_src, C,
-    budget]`` with ``inbox[dst, src] = box[src, dst]``.
+    budget]`` with ``inbox[dst, src] = box[src, dst]``: the C column
+    planes of the box go through one launch of the planes kernel.
 
     A CPU tensor goes through :func:`ring_exchange_plain`; a CUDA tensor
     launches the kernel on the current stream or raises."""
@@ -74,21 +173,19 @@ def ring_exchange(box: torch.Tensor) -> torch.Tensor:
         return ring_exchange_plain(box)
     if box.device.type != "cuda":
         raise ValueError(f"ring_exchange runs on cpu or cuda, not {box.device}")
+    d, _, c, budget = box.shape
+    if c > MAX_PLANES:
+        raise ValueError(
+            f"ring_exchange takes at most {MAX_PLANES} columns, got {c}"
+        )
     inbox = torch.empty_like(box)
-    d = box.shape[0]
-    row_len = box.shape[2] * box.shape[3]
     if inbox.numel() == 0:
         return inbox
-    chunks = max(1, min(-(-_TARGET_BLOCKS // (d * d)),
-                        -(-row_len // _MIN_CHUNK)))
-    launch = _launch_lib()
-    with torch.cuda.device(box.device):
-        stream = torch.cuda.current_stream(box.device).cuda_stream
-        rc = launch(box.data_ptr(), inbox.data_ptr(), d, row_len, chunks,
-                    stream)
-    if rc != 0:
-        raise RuntimeError(f"ring_exchange kernel launch failed: cudaError {rc}")
-    ring_exchange.launches += 1
+    row = budget * 4
+    src, out = box.data_ptr(), inbox.data_ptr()
+    _launch([src + i * row for i in range(c)], box.stride()[:2],
+            [out + i * row for i in range(c)], inbox.stride()[:2], d, budget,
+            box.device)
     return inbox
 
 

@@ -294,6 +294,7 @@ def merge_into_rows(
     rx: tuple = None,
     alloc_budget: int = None,
     amortize: bool = True,
+    alloc_segments: int = 1,
 ):
     """The amortized sort-merge tick: locate every arrival once,
     scatter-max every seated delivery, and, when some arrival needs a slot,
@@ -314,6 +315,12 @@ def merge_into_rows(
     allocation machinery when it is false; False runs it always, with the
     same results.
 
+    ``alloc_segments`` cuts the stream into that many equal segments,
+    each compacted into its own ``alloc_budget`` substream: the sharded
+    plane merges its D shards' streams (disjoint row blocks, each
+    shard's stream one segment) in one call, exactly as D calls would,
+    behind one host read of "does any shard need a slot?".
+
     Returns ``(slot_subj', planes', key_rx, sus_rx, dropped, forgot)``
     with rows sorted and the rx planes at their final columns.  Never
     writes into its arguments.  Its kernels run inside the profiler range
@@ -322,12 +329,12 @@ def merge_into_rows(
         return _merge_into_rows(
             slot_subj, planes, defaults, recv, subj, val, sus, ok, alloc,
             evictable, remembers, default_val, allocate, rx, alloc_budget,
-            amortize)
+            amortize, alloc_segments)
 
 
 def _merge_into_rows(slot_subj, planes, defaults, recv, subj, val, sus, ok,
                      alloc, evictable, remembers, default_val, allocate, rx,
-                     alloc_budget, amortize):
+                     alloc_budget, amortize, alloc_segments):
     n, K = slot_subj.shape
     A = recv.shape[0]
     dev = slot_subj.device
@@ -340,7 +347,11 @@ def _merge_into_rows(slot_subj, planes, defaults, recv, subj, val, sus, ok,
     # allocation branch runs only when a claim might happen.
     unseated = ok & (slot0 < 0)
     need_any = torch.any(el0 & unseated)
-    B = A if alloc_budget is None else max(1, min(A, alloc_budget))
+    if A % alloc_segments:
+        raise ValueError(f"{A} arrivals do not cut into {alloc_segments} "
+                         "equal segments")
+    A_seg = A // alloc_segments
+    B = A_seg if alloc_budget is None else max(1, min(A_seg, alloc_budget))
 
     if sus is None:
         susv = torch.full((A,), -1, dtype=torch.int32, device=dev)
@@ -358,23 +369,28 @@ def _merge_into_rows(slot_subj, planes, defaults, recv, subj, val, sus, ok,
     return _allocate_and_merge(
         slot_subj, tuple(planes), defaults, key_rx0, sus_rx0, recv, subj,
         val32, susv, lo0, el0, flat0, unseated, evictable, remembers,
-        allocate, B)
+        allocate, B, alloc_segments)
 
 
 def _allocate_and_merge(slot_subj, planes, defaults, rxk0, rxs0, recv, subj,
                         val32, susv, lo0, el0, flat0, uns, evictable,
-                        remembers, allocate, B):
+                        remembers, allocate, B, segments):
     """The allocation branch of :func:`merge_into_rows`."""
     n, K = slot_subj.shape
     nk = n * K
     dev = slot_subj.device
     # Prioritised admission: allocation-worthy arrivals take the first
     # positions in stream order, the rest queue behind them; worthy
-    # arrivals past the budget count into ``dropped``.
-    gi, taken, kept, _ = compact_to_budget(uns, B, first=el0)
+    # arrivals past the budget count into ``dropped``.  Each segment
+    # compacts into its own B slots.
+    a_seg = uns.shape[0] // segments
+    gi, taken, kept, _ = compact_to_budget(
+        uns.view(segments, a_seg), B, first=el0.view(segments, a_seg))
     missed = (torch.sum(el0 & uns, dtype=torch.int32)
-              - torch.sum(kept & el0, dtype=torch.int32))
-    gi = gi.long()
+              - torch.sum(kept.reshape(-1) & el0, dtype=torch.int32))
+    seg0 = torch.arange(segments, dtype=torch.int64, device=dev) * a_seg
+    gi = (gi.long() + seg0[:, None]).reshape(-1)
+    taken = taken.reshape(-1)
     r = torch.where(taken, recv.to(torch.int32)[gi], n)
     s = torch.where(taken, subj.to(torch.int32)[gi], n)
     r, s, perm = _lexsort2(r, s, n)

@@ -10,20 +10,36 @@ from consul_tpu_torch.parallel.mesh import (
 from consul_tpu_torch.parallel.shard import (
     exchange_outbox,
     outbox_budget,
+    outbox_pitch,
     pack_outbox,
     sharded_broadcast_scan,
     sharded_geo_scan,
+    ShardPlan,
+    sharded_membership_plan,
+    sharded_membership_round,
+    sharded_membership_scan,
+    sharded_sparse_membership_round,
+    sharded_sparse_membership_scan,
+    sharded_sparse_plan,
 )
 
 __all__ = [
     "Mesh",
     "NODE_AXIS",
+    "ShardPlan",
     "block_size",
     "exchange_outbox",
     "make_mesh",
     "mesh_for",
     "outbox_budget",
+    "outbox_pitch",
     "pack_outbox",
     "sharded_broadcast_scan",
     "sharded_geo_scan",
+    "sharded_membership_plan",
+    "sharded_membership_round",
+    "sharded_membership_scan",
+    "sharded_sparse_membership_round",
+    "sharded_sparse_membership_scan",
+    "sharded_sparse_plan",
 ]

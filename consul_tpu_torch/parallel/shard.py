@@ -1,7 +1,7 @@
 """The sharded simulation plane over D logical shards on one device.
 
-The port of ``consul_tpu/parallel/shard.py`` (the broadcast and geo
-families).  Shard
+The port of ``consul_tpu/parallel/shard.py`` (the broadcast, dense and
+sparse membership, and geo families).  Shard
 ``me`` owns the contiguous block of global ids ``[me*blk, (me+1)*blk)``;
 every per-node plane is ``[D, blk]``, and one sharded round decomposes as
 in the reference:
@@ -13,8 +13,9 @@ in the reference:
      fixed per-destination outbox (:func:`outbox_budget` slots, misses
      counted into ``overflow``) and exchanged once per round through
      :func:`exchange_outbox`: ``"alltoall"`` is the plain layout move,
-     ``"ring"`` the CUDA ring kernel (``ops/ring_exchange.py``).  Both
-     give the same inbox.
+     ``"ring"`` the CUDA ring kernel (``ops/ring_exchange.py``), one
+     launch that moves every payload plane from the packed buffers into
+     the inbox layout.  Both give the same inbox.
   3. **Merge.**  Inbound messages land through the same delivery scatter
      the unsharded model uses.
 
@@ -25,6 +26,8 @@ reference's per-shard ``psum``s are sums over the shard axis.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from consul_tpu_torch.models.broadcast import (
@@ -32,13 +35,46 @@ from consul_tpu_torch.models.broadcast import (
     BroadcastState,
     spend_budget,
 )
+from consul_tpu_torch.models.membership import (
+    RANK_SUSPECT,
+    MembershipConfig,
+    MembershipState,
+    finish_round,
+    gossip_stage,
+    key_inc,
+    key_rank,
+    membership_constants,
+    membership_counts,
+    push_pull_draws,
+    push_pull_full,
+    spend_gossip,
+    track_outputs,
+)
+from consul_tpu_torch.models.membership_sparse import (
+    COUNTER_CAP,
+    SparseMembershipConfig,
+    SparseMembershipState,
+    _merge_arrivals,
+    _sus_of,
+    gossip_sender_budget,
+    n_squared,
+    pp_initiator_budget,
+    push_pull_leg,
+    sparse_constants,
+    sparse_finish_round,
+    sparse_gossip_stage,
+    sparse_membership_counts,
+    sparse_push_pull_draws,
+    sparse_spend,
+)
 from consul_tpu_torch.ops import (
     arrival_rate,
     bernoulli_mask_owned,
+    compact_to_budget,
     deliver_or,
     fold_in,
     poissonized_arrivals_owned,
-    ring_exchange,
+    ring_exchange_planes,
     sample_peers_owned,
     split,
 )
@@ -60,6 +96,13 @@ def outbox_budget(stream_len: int, n_shards: int,
     return min(stream_len, max(floor, -(-c * stream_len // n_shards)))
 
 
+def outbox_pitch(n_shards: int, budget: int) -> int:
+    """Row pitch (int32) of a packed outbox plane: the ``n_shards * budget``
+    slots plus one drop slot for messages past the budget, rounded up to
+    a multiple of 4 so that every source row starts 16-byte aligned."""
+    return -(-(n_shards * budget + 1) // 4) * 4
+
+
 def pack_outbox(dest: torch.Tensor, ok: torch.Tensor, cols: tuple,
                 n_shards: int, budget: int):
     """Pack flat message streams into per-destination outbox slots.
@@ -72,8 +115,10 @@ def pack_outbox(dest: torch.Tensor, ok: torch.Tensor, cols: tuple,
     ``budget`` slots; unpacked slots hold -1 and messages ranked past the
     budget are dropped and counted.
 
-    Returns ``(outbox_cols, dropped)``: each plane int32
-    ``[..., n_shards, budget]`` and ``dropped`` int32 ``[...]``."""
+    Returns ``(outbox_cols, dropped)``: each plane an int32
+    ``[..., n_shards, budget]`` view of one buffer for all planes whose
+    rows are :func:`outbox_pitch` long (the drop slot and the padding
+    after the slots), and ``dropped`` int32 ``[...]``."""
     batch = dest.shape[:-1]
     a_len = dest.shape[-1]
     idx = torch.arange(a_len, dtype=torch.int64, device=dest.device)
@@ -83,15 +128,15 @@ def pack_outbox(dest: torch.Tensor, ok: torch.Tensor, cols: tuple,
     rank = _segmented_sum(seg_start, torch.ones_like(d_sorted)) - 1
     valid = d_sorted < n_shards
     can = valid & (rank < budget)
-    slot = torch.where(can, d_sorted * budget + rank, n_shards * budget)
-    packed = []
-    for c_ in cols:
-        buf = torch.full((*batch, n_shards * budget + 1), -1,
-                         dtype=torch.int32, device=dest.device)
+    width = n_shards * budget
+    slot = torch.where(can, d_sorted * budget + rank, width)
+    bufs = torch.full((len(cols), *batch, outbox_pitch(n_shards, budget)), -1,
+                      dtype=torch.int32, device=dest.device)
+    for buf, c_ in zip(bufs, cols):
         buf.scatter_(-1, slot, torch.gather(c_, -1, perm).to(torch.int32))
-        packed.append(buf[..., :-1].reshape(*batch, n_shards, budget))
+    packed = bufs[..., :width].unflatten(-1, (n_shards, budget)).unbind(0)
     dropped = torch.sum(valid & ~can, dim=-1, dtype=torch.int32)
-    return tuple(packed), dropped
+    return packed, dropped
 
 
 def _check_backend(backend: str) -> None:
@@ -106,37 +151,32 @@ def exchange_outbox(planes: tuple, backend: str = "alltoall") -> tuple:
     """Move outbox row ``dst`` of every source shard to shard ``dst``.
 
     ``planes`` -- int32 ``[D_src, D_dst, budget]`` outboxes, one per
-    payload column.  Returns one ``[D_dst, D_src*budget]`` inbox per
-    plane: row ``dst`` holds what each shard addressed to ``dst``, in
-    source order, -1 slots empty -- the reference's all_to_all layout.
+    payload column, as :func:`pack_outbox` leaves them.  Returns one
+    ``[D_dst, D_src*budget]`` inbox per plane: row ``dst`` holds what each
+    shard addressed to ``dst``, in source order, -1 slots empty -- the
+    reference's all_to_all layout.
 
       alltoall  the plain layout move (what ``lax.all_to_all`` does in
-                the reference)
-      ring      the CUDA ring kernel over the stacked ``[D, D, C,
-                budget]`` box (the plain version on a CPU tensor)
+                the reference), one copy per plane
+      ring      the CUDA ring kernel, one launch over all the packed
+                planes in place (the plain version on a CPU tensor)
     """
     _check_backend(backend)
-    d, _, budget = planes[0].shape
     if backend == "ring":
-        box = torch.stack([p.to(torch.int32) for p in planes], dim=2)
-        inbox = ring_exchange(box)
-        return tuple(
-            inbox[:, :, c, :].reshape(d, d * budget)
-            for c in range(len(planes))
-        )
+        return ring_exchange_planes(planes)
+    d, _, budget = planes[0].shape
     return tuple(
         p.to(torch.int32).transpose(0, 1).reshape(d, d * budget)
         for p in planes
     )
 
 
-def _check_mesh_state(state: BroadcastState, mesh: Mesh, n: int) -> None:
-    if mesh.device is not None and state.knows.device != mesh.device:
-        raise ValueError(
-            f"state on {state.knows.device} but mesh on {mesh.device}"
-        )
-    if state.knows.numel() != n:
-        raise ValueError(f"state holds {state.knows.numel()} nodes, cfg {n}")
+def _check_mesh_state(plane: torch.Tensor, mesh: Mesh, n: int) -> None:
+    """A state's per-node ``plane`` holds ``n`` rows on the mesh's device."""
+    if mesh.device is not None and plane.device != mesh.device:
+        raise ValueError(f"state on {plane.device} but mesh on {mesh.device}")
+    if plane.shape[0] != n:
+        raise ValueError(f"state holds {plane.shape[0]} nodes, cfg {n}")
 
 
 def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
@@ -153,7 +193,7 @@ def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
     n, fanout = cfg.n, cfg.fanout
     d_shards = mesh.n_shards
     blk = block_size(n, mesh)
-    _check_mesh_state(state, mesh, n)
+    _check_mesh_state(state.knows, mesh, n)
     dev = state.knows.device
     budget = (
         outbox_budget(blk * fanout, d_shards)
@@ -215,6 +255,353 @@ def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
         tick=st.tick,
     )
     return final, (infected, ov)
+
+
+def _rows(x: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """Every shard's row block of a full-population array, ``[D, blk,
+    ...]``: block ``me`` is what the reference's per-shard
+    ``dynamic_slice`` at ``me * blk`` gives shard ``me``."""
+    return x.reshape(n_shards, -1, *x.shape[1:])
+
+
+def _global_initiators(pp_ok_l: torch.Tensor, partner_l: torch.Tensor,
+                       rows_g: torch.Tensor, n: int, i_slots: int):
+    """The global budgeted push/pull initiator set, assembled from each
+    shard's owned rows (``pp_ok_l``, ``partner_l``, ``rows_g``: ``[D,
+    blk]``).
+
+    Each shard compacts its own initiators (ascending global id) into
+    ``min(i_slots, blk)`` slots, a lossless cap for the global first
+    ``i_slots`` cut; the shards' id lists, concatenated in shard order
+    (the reference's tiled ``all_gather``), are already globally
+    ascending and compact down to ``i_slots``.  The selected set is
+    therefore the unsharded compaction's prefix at every D.  Returns
+    int32 ``(who, pwho, sel, missed)``: initiator and partner ids (``n``
+    on empty slots), the slot mask, and the initiators past the budget."""
+    blk = rows_g.shape[-1]
+    li, lt, _, _ = compact_to_budget(pp_ok_l, min(i_slots, blk))
+    li = li.long()
+    who_l = torch.where(lt, torch.gather(rows_g, -1, li), n)
+    pwho_l = torch.where(lt, torch.gather(partner_l.to(torch.int32), -1, li),
+                         n)
+    who_all, pwho_all = who_l.reshape(-1), pwho_l.reshape(-1)
+    gi, sel, _, _ = compact_to_budget(who_all < n, i_slots)
+    gi = gi.long()
+    who = torch.where(sel, who_all[gi], n)
+    pwho = torch.where(sel, pwho_all[gi], n)
+    missed = (torch.sum(pp_ok_l, dtype=torch.int32)
+              - torch.sum(sel, dtype=torch.int32))
+    return who, pwho, sel, missed
+
+
+def _route_and_exchange(dest, ok, cols: tuple, d_shards: int, budget: int,
+                        exchange: str):
+    """Pack each shard's messages to other shards (``dest``/``ok``/``cols``:
+    ``[D, A]``) and exchange the outboxes: returns ``(inbox planes [D,
+    D*budget], dropped [D])``."""
+    me = torch.arange(d_shards, device=dest.device)[:, None]
+    packed, dropped = pack_outbox(dest, ok & (dest != me), cols, d_shards,
+                                  budget)
+    return exchange_outbox(packed, backend=exchange), dropped
+
+
+class ShardPlan(NamedTuple):
+    """What a sharded membership tick reads besides the state and its key,
+    fixed for a study: the layout, the budgets and the config's tensors
+    on the study's device (:func:`sharded_membership_plan`,
+    :func:`sharded_sparse_plan`)."""
+
+    n_shards: int
+    blk: int                 # observer rows a shard owns
+    budget: int              # outbox slots per destination shard
+    i_slots: int             # push/pull initiator budget (global)
+    s_budget: int            # gossip sender slots a shard (sparse)
+    pp_owned: int            # push/pull legs a shard sources (sparse)
+    exchange: str
+    consts: tuple            # MembershipConstants / SparseConstants
+    rows_g: torch.Tensor     # int32 [D, blk]: each shard's global ids
+    track_idx: torch.Tensor
+    n_sq: torch.Tensor       # float32 f32(n) * n (sparse)
+
+
+def sharded_membership_plan(cfg: MembershipConfig, mesh: Mesh, device,
+                            track: tuple = (),
+                            exchange: str = "alltoall") -> ShardPlan:
+    """The plan of a dense study over ``mesh``: outbox budget twice the
+    per-destination mean of a shard's ``blk * F * M`` gossip lanes."""
+    _check_backend(exchange)
+    d_shards = mesh.n_shards
+    blk = block_size(cfg.n, mesh)
+    m = min(cfg.piggyback, cfg.n)
+    return ShardPlan(
+        d_shards, blk, outbox_budget(blk * cfg.fanout * m, d_shards),
+        pp_initiator_budget(cfg.n, cfg.push_pull_ticks), 0, 0, exchange,
+        membership_constants(cfg, device), _shard_rows(cfg.n, d_shards,
+                                                       device),
+        torch.tensor(track, dtype=torch.int64).to(device), None)
+
+
+def sharded_sparse_plan(cfg: SparseMembershipConfig, mesh: Mesh, device,
+                        track: tuple = (),
+                        exchange: str = "alltoall") -> ShardPlan:
+    """The plan of a sparse study over ``mesh`` (K < n): the gossip sender
+    budget over a shard's rows, the owned push/pull legs (``i_slots /
+    D``, floor 64, exactly ``i_slots`` at D == 1) and an outbox budget
+    twice the per-destination mean of the resulting stream."""
+    _check_backend(exchange)
+    base = cfg.base
+    n = base.n
+    K = min(cfg.k_slots, n)
+    if K >= n:
+        raise ValueError(
+            "sharded sparse plane requires k_slots < n (K == n is the "
+            "unsharded dense-parity mode)"
+        )
+    d_shards = mesh.n_shards
+    blk = block_size(n, mesh)
+    i_slots = pp_initiator_budget(n, base.push_pull_ticks)
+    s_budget = gossip_sender_budget(blk)
+    pp_owned = min(i_slots, max(64, i_slots // d_shards))
+    stream_len = s_budget * base.fanout * min(base.piggyback, K)
+    if base.push_pull_enabled:
+        stream_len += 2 * pp_owned * K
+    return ShardPlan(
+        d_shards, blk, outbox_budget(stream_len, d_shards), i_slots,
+        s_budget, pp_owned, exchange, sparse_constants(cfg, device),
+        _shard_rows(n, d_shards, device),
+        torch.tensor(track, dtype=torch.int32).to(device),
+        n_squared(n, device))
+
+
+def _shard_rows(n: int, d_shards: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device).view(d_shards,
+                                                                  -1)
+
+
+def sharded_membership_round(state: MembershipState, key_rng: torch.Tensor,
+                             cfg: MembershipConfig, plan: ShardPlan):
+    """One tick of the sharded dense twin: ``(state', (suspecting,
+    dead_known, suspect_cells, known_members, overflow))`` with
+    ``overflow`` this tick's misses.
+
+    The tick is the unsharded round (the draws are owned, so the packets
+    are the same) with two changes.  Gossip to another shard's observers
+    rides the per-destination outbox with the four columns ``(recv, subj,
+    val, sus)``; misses count.  At D > 1 the push/pull exchange takes the
+    budgeted initiators of :func:`_global_initiators` (misses count) and
+    each selected pair merges the other's row, the reference's ``pmax``
+    over the shard axis being the owning shard's row.  D == 1 keeps the
+    full-width exchange and equals the unsharded round."""
+    n, fanout = cfg.n, cfg.fanout
+    m = min(cfg.piggyback, n)
+    d_shards, blk = plan.n_shards, plan.blk
+    dev = state.key.device
+    g = gossip_stage(state, key_rng, cfg, plan.consts)
+    shape3 = (n, fanout, m)
+    ok3 = (g.packet_ok[:, :, None] & g.msg_valid[:, None, :]).view(
+        d_shards, -1)
+    recv = g.targets[:, :, None].expand(shape3).reshape(d_shards, -1)
+    subj3 = g.subj[:, None, :].expand(shape3).reshape(d_shards, -1)
+    val3 = g.msg_key[:, None, :].expand(shape3).reshape(d_shards, -1)
+    sus3 = torch.where(key_rank(val3) == RANK_SUSPECT, key_inc(val3), -1)
+    # Local deliveries scatter straight into the [n + 1, n] receive planes
+    # (the last row a sink); remote ones ride the outbox and land from the
+    # inbox.  Both are maxima, so order is free.
+    dest = recv // blk
+    me = torch.arange(d_shards, device=dev)[:, None]
+    local = ok3 & (dest == me)
+    key_rx = torch.full(((n + 1) * n,), -1, dtype=torch.int32, device=dev)
+    sus_rx = torch.full(((n + 1) * n,), -1, dtype=torch.int32, device=dev)
+    flat = torch.where(local, recv * n + subj3, n * n).reshape(-1)
+    key_rx.scatter_reduce_(0, flat, val3.reshape(-1), "amax")
+    sus_rx.scatter_reduce_(0, flat, sus3.reshape(-1), "amax")
+    (ib_recv, ib_subj, ib_val, ib_sus), dropped = _route_and_exchange(
+        dest, ok3, (recv, subj3, val3, sus3), d_shards, plan.budget,
+        plan.exchange)
+    flat_in = torch.where(ib_recv >= 0, ib_recv.long() * n + ib_subj,
+                          n * n).reshape(-1)
+    key_rx.scatter_reduce_(0, flat_in, ib_val.reshape(-1), "amax")
+    sus_rx.scatter_reduce_(0, flat_in, ib_sus.reshape(-1), "amax")
+    key_rx = key_rx.view(n + 1, n)
+    tx = spend_gossip(g, fanout)
+    ov = torch.sum(dropped, dtype=torch.int32)
+
+    if cfg.push_pull_enabled:
+        partner, pp_ok = push_pull_draws(g, cfg)
+        if d_shards == 1:
+            # At D == 1 the owned rows are the population: the full-width
+            # exchange, as the unsharded round.
+            push_pull_full(key_rx, g.key_m, partner, pp_ok)
+        else:
+            who, pwho, sel, missed = _global_initiators(
+                _rows(pp_ok, d_shards), _rows(partner, d_shards),
+                plan.rows_g, n, plan.i_slots)
+            ov = ov + missed
+            # Each id has one owning shard, so the max over the shard axis
+            # of "the row where owned, else -1" is its row.
+            i_rows, p_rows = (
+                torch.where(sel[:, None],
+                            g.key_m[torch.clamp(ids, max=n - 1).long()], -1)
+                for ids in (who, pwho))
+            # Pull: an initiator merges its partner's row; push: a partner
+            # merges its initiator's.
+            for dst, rows in ((who, p_rows), (pwho, i_rows)):
+                tgt = torch.where(sel, dst, n).long()[:, None]
+                key_rx.scatter_reduce_(0, tgt.expand(rows.shape), rows,
+                                       "amax")
+    st = finish_round(state, g, tx, key_rx[:n], sus_rx.view(n + 1, n)[:n],
+                      cfg, plan.consts)
+    return st, (*membership_counts(st.key, plan.track_idx), ov)
+
+
+def sharded_membership_scan(state, key: torch.Tensor, cfg, steps: int,
+                            mesh: Mesh, track: tuple = (),
+                            exchange: str = "alltoall"):
+    """Sharded twin of ``sim.engine.membership_scan`` (cfg: a
+    MembershipConfig): shard ``me`` owns observer rows ``[me*blk,
+    (me+1)*blk)`` of every [n, n] plane; each tick is
+    :func:`sharded_membership_round`.  Returns ``(final_state,
+    (suspecting, dead_known, suspect_cells, known_members, overflow))``
+    with ``overflow`` the total misses."""
+    _check_mesh_state(state.key, mesh, cfg.n)
+    dev = state.key.device
+    plan = sharded_membership_plan(cfg, mesh, dev, tuple(track), exchange)
+    outs = track_outputs(steps, len(track), torch.int32, dev)
+    ov = torch.zeros((), dtype=torch.int32, device=dev)
+    for t in range(steps):
+        state, (*counts, ov_t) = sharded_membership_round(
+            state, fold_in(key, t), cfg, plan)
+        for o, v in zip(outs, counts):
+            o[t] = v
+        ov = ov + ov_t
+    return state, (*outs, ov)
+
+
+def _owned_legs(src_g, recv_ids, sel, plan: ShardPlan):
+    """The push/pull legs whose source row each shard owns, compacted to
+    ``plan.pp_owned`` a shard: ``(taken, src rows, receivers, missed)``,
+    ``[D, pp_owned]`` each but ``missed`` ``[D]``."""
+    start = plan.rows_g[:, :1]
+    loc = src_g[None, :] - start
+    own = (loc >= 0) & (loc < plan.blk) & sel[None, :]
+    j, taken, _, missed = compact_to_budget(own, plan.pp_owned)
+    j = j.long()
+    rows = torch.clamp(src_g[j] - start, 0, plan.blk - 1) + start
+    return taken, rows, recv_ids[j], missed
+
+
+def sharded_sparse_membership_round(state: SparseMembershipState,
+                                    key_rng: torch.Tensor,
+                                    cfg: SparseMembershipConfig,
+                                    plan: ShardPlan):
+    """One tick of the sharded sparse twin: ``(state', (suspecting,
+    dead_known, suspect_cells, known_members))``; every miss counts into
+    ``state.overflow``.
+
+    Per shard, as the reference: gossip senders compact to
+    ``plan.s_budget``; the push/pull initiators come from
+    :func:`_global_initiators` and each shard emits the legs whose source
+    row it owns, compacted to ``plan.pp_owned``; the ``(recv, subj, val,
+    sus, alloc)`` stream is routed (own rows direct, other shards' through
+    the outbox), and each shard's own messages followed by its inbox land
+    through one sort-merge.  On one card the D merges are one
+    ``merge_into_rows`` call with a per-shard allocation budget, behind
+    one host read of "does any shard need a slot?" (the allocation branch
+    equals the skip branch where it is not needed); the probe claim reads
+    its predicate once for all shards too: at most 2 host syncs a tick."""
+    base = cfg.base
+    n, fanout = base.n, base.fanout
+    K = state.key.shape[1]
+    m = min(base.piggyback, K)
+    d_shards = plan.n_shards
+    dev = state.key.device
+    start = plan.rows_g[:, :1]                             # [D, 1]
+    g = sparse_gossip_stage(state, key_rng, cfg, plan.consts)
+    slot_subj, key_m = state.slot_subj, g.key_m
+
+    # Compacted emission over each shard's own rows.
+    has_msg = _rows(torch.any(g.msg_valid, dim=1), d_shards)
+    sndc, sel_s, sel_mask, ov_shards = compact_to_budget(has_msg,
+                                                         plan.s_budget)
+    msg_valid = g.msg_valid & sel_mask.reshape(n, 1)
+    src = (sndc + start).reshape(-1).long()                # global rows
+    shape3 = (src.shape[0], fanout, m)
+    val_g = g.msg_key[src][:, None, :].expand(shape3)
+    parts = [tuple(x.reshape(d_shards, -1) for x in (
+        g.targets[src][:, :, None].expand(shape3),
+        g.msg_subj[src][:, None, :].expand(shape3),
+        val_g, _sus_of(val_g),
+        (g.packet_ok[src] & sel_s.reshape(-1, 1))[:, :, None]
+        & msg_valid[src][:, None, :],
+        torch.ones(shape3, dtype=torch.bool, device=dev),
+    ))]
+    tx = sparse_spend(g, msg_valid, fanout)
+
+    overflow = torch.clamp(state.overflow, max=COUNTER_CAP)
+    if base.push_pull_enabled:
+        partner, pp_ok = sparse_push_pull_draws(g, slot_subj, base)
+        who, pwho, sel, missed = _global_initiators(
+            _rows(pp_ok, d_shards), _rows(partner, d_shards), plan.rows_g,
+            n, plan.i_slots)
+        overflow = overflow + missed
+        # Pull: the partner's slots flow to the initiator; push: the
+        # initiator's to the partner.
+        for src_g, recv_ids in ((pwho, who), (who, pwho)):
+            taken, rows, recv_l, missed_legs = _owned_legs(src_g, recv_ids,
+                                                           sel, plan)
+            ov_shards = ov_shards + missed_legs
+            parts.append(push_pull_leg(slot_subj, key_m, recv_l, rows,
+                                       taken))
+    recv, subj, val, sus, ok, alloc = (
+        torch.cat([p[i] for p in parts], dim=-1) for i in range(6))
+
+    # Route: own rows direct, the rest through the outbox.
+    dest = recv.long() // plan.blk
+    local = ok & (dest == torch.arange(d_shards, device=dev)[:, None])
+    (ib_recv, ib_subj, ib_val, ib_sus, ib_alloc), dropped = (
+        _route_and_exchange(dest, ok, (recv, subj, val, sus,
+                                       alloc.to(torch.int32)),
+                            d_shards, plan.budget, plan.exchange))
+    ib_ok = ib_recv >= 0
+    # Shard me's merge stream: its own messages, then its inbox.
+    stream = tuple(torch.cat(pair, dim=-1).reshape(-1) for pair in (
+        (torch.where(local, recv, start), torch.where(ib_ok, ib_recv, start)),
+        (subj, ib_subj), (val, ib_val), (sus, ib_sus), (local, ib_ok),
+        (alloc, ib_alloc > 0)))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    slots_t, key_rx, sus_rx, ov_merge, forgot = _merge_arrivals(
+        (slot_subj, key_m, state.suspect_since, state.confirms, tx), *stream,
+        n, K, zero, zero, amortize=cfg.amortize is not False,
+        segments=d_shards)
+    overflow = overflow + (torch.sum(ov_shards + dropped, dtype=torch.int32)
+                           + ov_merge)
+    forgotten = torch.clamp(state.forgotten, max=COUNTER_CAP) + forgot
+    st = sparse_finish_round(state, g, slots_t, key_rx, sus_rx, overflow,
+                             forgotten, cfg, plan.consts)
+    return st, sparse_membership_counts(st, plan.track_idx, plan.n_sq,
+                                        d_shards)
+
+
+def sharded_sparse_membership_scan(state, key: torch.Tensor, cfg,
+                                   steps: int, mesh: Mesh,
+                                   track: tuple = (),
+                                   exchange: str = "alltoall"):
+    """Sharded twin of ``sim.engine.sparse_membership_scan`` (cfg: a
+    SparseMembershipConfig with K < n): shard ``me`` owns observer rows
+    ``[me*blk, (me+1)*blk)`` of the [n, K] slot planes; each tick is
+    :func:`sharded_sparse_membership_round`.  Returns ``(final_state,
+    (suspecting, dead_known, suspect_cells, known_members))`` like the
+    unsharded scan; ``state.overflow`` also counts the outbox misses."""
+    _check_mesh_state(state.key, mesh, cfg.base.n)
+    dev = state.key.device
+    plan = sharded_sparse_plan(cfg, mesh, dev, tuple(track), exchange)
+    outs = track_outputs(steps, len(track), torch.float32, dev)
+    for t in range(steps):
+        state, counts = sharded_sparse_membership_round(
+            state, fold_in(key, t), cfg, plan)
+        for o, v in zip(outs, counts):
+            o[t] = v
+    return state, outs
 
 
 def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,

@@ -13,7 +13,10 @@ first 10 ticks), and the dense model at 16384 nodes (10 ticks); then the
 geo slice: ``multidc1m`` (1M nodes, 8 segments x 5 bridges, aggregate,
 120 ticks), bench.py's geo A/B at 1M (the adaptive arm, 160 ticks, over
 the Vivaldi-derived latencies) and the same over 8 logical shards with the
-ring transport.
+ring transport; then the sharded membership twins over 8 logical shards
+with the ring transport beside the unsharded runs: the sparse model at
+100k nodes cold (its first 30 ticks, unsharded and sharded), at 1M cold
+(10 ticks) and the dense model at 16384 nodes (10 ticks).
 
 Each study runs once to warm up, once timed over all its ticks without
 the profiler (rounds/s), and over a shorter window twice: once timed
@@ -49,6 +52,7 @@ MEMBERSHIP_WINDOW = 10
 DENSE_N = 16384
 MULTIDC_STEPS = 120
 GEO_STEPS = 160
+SPARSE_COLD_STEPS = 30   # bench.py's cold run at 100k
 
 # Kernel-name fragments -> the layer that launches them.  The threefry
 # draws are elementwise int64 arithmetic; everything elementwise that is
@@ -215,6 +219,8 @@ def main() -> int:
                                     device=dev)
     geo = geo_ab_config(latency, n=N_NODES)
 
+    ring8 = {"mesh": mesh_for(8), "exchange": "ring"}
+
     def study(entry, cfg, **kw):
         def run(steps):
             entry(cfg, steps, warmup=False, **kw)
@@ -256,6 +262,18 @@ def main() -> int:
         ("geo_1m_adaptive", study(run_geo, geo), GEO_STEPS, 10),
         ("geo_1m_adaptive_d8_ring", study(run_geo, geo, mesh=mesh_for(8),
                                           exchange="ring"), GEO_STEPS, 10),
+        ("membership_sparse_100k_cold",
+         study(run_membership_sparse, sparse[100_000], track=(42,)),
+         SPARSE_COLD_STEPS, MEMBERSHIP_WINDOW),
+        ("membership_sparse_100k_cold_d8_ring",
+         study(run_membership_sparse, sparse[100_000], track=(42,),
+               **ring8), SPARSE_COLD_STEPS, MEMBERSHIP_WINDOW),
+        ("membership_sparse_1m_cold_d8_ring",
+         study(run_membership_sparse, sparse[N_NODES], track=(42,),
+               **ring8), MEMBERSHIP_WINDOW, MEMBERSHIP_WINDOW),
+        ("membership_dense_16k_d8_ring",
+         study(run_membership, dense, track=(42,), **ring8),
+         MEMBERSHIP_WINDOW, MEMBERSHIP_WINDOW),
     )
     for label, run, ticks, window in studies:
         print(json.dumps(profile_study(run, label, ticks, window)),

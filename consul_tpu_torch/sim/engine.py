@@ -1,7 +1,8 @@
 """The study engine: tick loops over the round functions, timed on the device.
 
-The port of the broadcast, SWIM, Lifeguard, (unsharded) membership,
-multi-DC and geo paths of ``consul_tpu/sim/engine.py``.  Round
+The port of the broadcast, SWIM, Lifeguard, membership (dense and
+sparse, unsharded and over D logical shards), multi-DC and geo paths of
+``consul_tpu/sim/engine.py``.  Round
 keys are counter-based as in the reference: round ``t`` draws from
 ``fold_in(scan_key, t)``, so trajectories are prefix-stable in ``steps``
 and the sharded twin stays bit-equal at D == 1.  ``lax.scan`` becomes a
@@ -13,7 +14,6 @@ from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
 from consul_tpu_torch.device import resolve_device
@@ -23,13 +23,12 @@ from consul_tpu_torch.models.broadcast import (
     broadcast_round,
 )
 from consul_tpu_torch.models.membership import (
-    RANK_DEAD,
-    RANK_SUSPECT,
     MembershipConfig,
-    key_rank,
     membership_constants,
+    membership_counts,
     membership_init,
     membership_round,
+    track_outputs,
 )
 from consul_tpu_torch.models.multidc import (
     MultiDCConfig,
@@ -37,7 +36,9 @@ from consul_tpu_torch.models.multidc import (
     multidc_round,
 )
 from consul_tpu_torch.models.membership_sparse import (
+    n_squared,
     sparse_constants,
+    sparse_membership_counts,
     sparse_membership_init,
     sparse_membership_round,
 )
@@ -53,6 +54,8 @@ from consul_tpu_torch.ops import PRNGKey, fold_in
 from consul_tpu_torch.parallel.shard import (
     sharded_broadcast_scan,
     sharded_geo_scan,
+    sharded_membership_scan,
+    sharded_sparse_membership_scan,
 )
 from consul_tpu_torch.sim.metrics import (
     BroadcastReport,
@@ -168,15 +171,6 @@ def lifeguard_scan(state, key: torch.Tensor, cfg, steps: int):
     return state, (*outs, mean_awareness)
 
 
-def _track_outputs(steps: int, n_track: int, known_dtype, device):
-    """Preallocated per-tick outputs of the membership scans: suspecting
-    and dead_known [steps, S], suspect_cells and known_members [steps]."""
-    return (torch.empty((steps, n_track), dtype=torch.int32, device=device),
-            torch.empty((steps, n_track), dtype=torch.int32, device=device),
-            torch.empty(steps, dtype=torch.int32, device=device),
-            torch.empty(steps, dtype=known_dtype, device=device))
-
-
 def membership_scan(state, key: torch.Tensor, cfg: MembershipConfig,
                     steps: int, track: tuple = ()):
     """Run ``steps`` ticks of the dense full-membership model.  Per tick:
@@ -187,19 +181,11 @@ def membership_scan(state, key: torch.Tensor, cfg: MembershipConfig,
     dev = key.device
     consts = membership_constants(cfg, dev)
     track_idx = torch.tensor(track, dtype=torch.int64).to(dev)
-    outs = _track_outputs(steps, len(track), torch.int32, dev)
-    suspecting, dead_known, suspect_cells, known_members = outs
+    outs = track_outputs(steps, len(track), torch.int32, dev)
     for t in range(steps):
         state = membership_round(state, fold_in(key, t), cfg, consts)
-        ranks = key_rank(state.key)
-        cols = ranks[:, track_idx]
-        suspecting[t] = torch.sum(cols == RANK_SUSPECT, dim=0,
-                                  dtype=torch.int32)
-        dead_known[t] = torch.sum(cols == RANK_DEAD, dim=0, dtype=torch.int32)
-        suspect_cells[t] = torch.sum(ranks == RANK_SUSPECT, dtype=torch.int32)
-        known_members[t] = torch.sum((state.key >= 0)
-                                     & (ranks <= RANK_SUSPECT),
-                                     dtype=torch.int32)
+        for o, v in zip(outs, membership_counts(state.key, track_idx)):
+            o[t] = v
     return state, outs
 
 
@@ -212,28 +198,14 @@ def sparse_membership_scan(state, key: torch.Tensor, cfg, steps: int,
     stays below 2**24)."""
     dev = key.device
     consts = sparse_constants(cfg, dev)
-    n = cfg.base.n
     track_idx = torch.tensor(track, dtype=torch.int32).to(dev)
-    n_sq = torch.full((), float(np.float32(n) * np.float32(n)),
-                      dtype=torch.float32, device=dev)
-    outs = _track_outputs(steps, len(track), torch.float32, dev)
-    suspecting, dead_known, suspect_cells, known_members = outs
+    n_sq = n_squared(cfg.base.n, dev)
+    outs = track_outputs(steps, len(track), torch.float32, dev)
     for t in range(steps):
         state = sparse_membership_round(state, fold_in(key, t), cfg, consts)
-        ranks = key_rank(state.key)
-        if track:
-            hit = state.slot_subj[:, :, None] == track_idx[None, None, :]
-            suspecting[t] = torch.sum(
-                hit & (ranks == RANK_SUSPECT)[:, :, None], dim=(0, 1),
-                dtype=torch.int32)
-            dead_known[t] = torch.sum(
-                hit & (ranks == RANK_DEAD)[:, :, None], dim=(0, 1),
-                dtype=torch.int32)
-        occupied = state.slot_subj >= 0
-        suspect_cells[t] = torch.sum(occupied & (ranks == RANK_SUSPECT),
-                                     dtype=torch.int32)
-        known_members[t] = n_sq - torch.sum(
-            occupied & (ranks > RANK_SUSPECT), dtype=torch.float32)
+        for o, v in zip(outs, sparse_membership_counts(state, track_idx,
+                                                       n_sq)):
+            o[t] = v
     return state, outs
 
 
@@ -270,9 +242,8 @@ def _check_later_slice(**knobs) -> None:
     for name, (value, default) in knobs.items():
         if value != default:
             raise NotImplementedError(
-                f"{name}= is not ported yet (the multi-card placement, the "
-                "sharded membership plane and telemetry come in later "
-                "slices)"
+                f"{name}= is not ported yet (the multi-card placement and "
+                "telemetry come in later slices)"
             )
 
 
@@ -432,19 +403,34 @@ def run_membership(
     device=None,
 ) -> MembershipReport:
     """Dense full-membership study; ``track`` selects the subjects whose
-    detection curves come back per tick.  Runs on CUDA unless ``device``
-    says otherwise; ``sharded``, ``mesh``, ``exchange`` and ``telemetry``
+    detection curves come back per tick.  ``mesh=`` runs the sharded twin
+    (``parallel/shard.py``: observer rows over D logical shards, gossip
+    over the outbox, budgeted push/pull at D > 1) and fills
+    ``report.overflow``; ``exchange`` picks its outbox transport.  Runs
+    on CUDA unless ``device`` (or the mesh's device) says otherwise;
+    ``sharded`` (the reference's multi-card placement) and ``telemetry``
     wait for later slices and are rejected."""
-    _check_later_slice(sharded=(sharded, False), mesh=(mesh, None),
-                       exchange=(exchange, "alltoall"),
+    _check_later_slice(sharded=(sharded, False),
                        telemetry=(telemetry, False))
+    _check_exchange(exchange, mesh)
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
-    _, outs, wall = _timed(
-        lambda: membership_init(cfg, device=dev),
-        lambda st, k: membership_scan(st, k, cfg, steps, tuple(track)),
-        PRNGKey(seed, device=dev), dev, warmup,
-    )
-    return _membership_report(cfg, track, outs, wall, dev)
+    track = tuple(track)
+    if mesh is not None:
+        def scan(st, k):
+            return sharded_membership_scan(st, k, cfg, steps, mesh, track,
+                                           exchange)
+    else:
+        def scan(st, k):
+            return membership_scan(st, k, cfg, steps, track)
+
+    _, outs, wall = _timed(lambda: membership_init(cfg, device=dev), scan,
+                           PRNGKey(seed, device=dev), dev, warmup)
+    report = _membership_report(cfg, track, outs[:4], wall, dev)
+    if mesh is not None:
+        report.overflow = int(outs[4])
+    return report
 
 
 def run_membership_sparse(
@@ -460,16 +446,28 @@ def run_membership_sparse(
 ):
     """Top-K sparse membership study (``cfg``: a SparseMembershipConfig),
     delivered through the sort-merge path (``ops/sortmerge.py``).  Returns
-    ``(report, overflow)``, the final state's overflow counter."""
-    _check_later_slice(mesh=(mesh, None), exchange=(exchange, "alltoall"),
-                       telemetry=(telemetry, False))
+    ``(report, overflow)``, the final state's overflow counter.  ``mesh=``
+    shards the observer rows over D logical shards (the overflow then
+    also counts outbox misses); ``exchange`` picks the outbox transport.
+    Runs on CUDA unless ``device`` (or the mesh's device) says otherwise;
+    ``telemetry`` waits for a later slice and is rejected."""
+    _check_later_slice(telemetry=(telemetry, False))
+    _check_exchange(exchange, mesh)
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
+    track = tuple(track)
+    if mesh is not None:
+        def scan(st, k):
+            return sharded_sparse_membership_scan(st, k, cfg, steps, mesh,
+                                                  track, exchange)
+    else:
+        def scan(st, k):
+            return sparse_membership_scan(st, k, cfg, steps, track)
+
     final, outs, wall = _timed(
-        lambda: sparse_membership_init(cfg, device=dev),
-        lambda st, k: sparse_membership_scan(st, k, cfg, steps,
-                                             tuple(track)),
-        PRNGKey(seed, device=dev), dev, warmup,
-    )
+        lambda: sparse_membership_init(cfg, device=dev), scan,
+        PRNGKey(seed, device=dev), dev, warmup)
     report = _membership_report(cfg.base, track, outs, wall, dev)
     report.forgotten = int(final.forgotten)
     return report, int(final.overflow)

@@ -155,7 +155,7 @@ class MembershipReport:
     known_members: np.ndarray     # [ticks] sum of membership sizes: int32
     #                               (dense), float32 gauge (sparse)
     wall_s: float
-    # Sharded runs only (a later slice).
+    # Sharded dense runs only: outbox and push/pull budget misses.
     overflow: Optional[int] = None
     device: str = ""              # what the run ran on
     # Sparse runs only: the final state's count of evicted settled cells.

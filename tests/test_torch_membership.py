@@ -263,10 +263,12 @@ def test_schedule_rejects_out_of_range_node():
 
 def test_run_membership_rejects_later_slice_knobs():
     cfg = MembershipConfig(n=8)
-    for kw in ({"mesh": object()}, {"exchange": "ring"},
-               {"telemetry": True}, {"sharded": True}):
+    for kw in ({"telemetry": True}, {"sharded": True}):
         with pytest.raises(NotImplementedError):
             run_membership(cfg, 2, device="cpu", **kw)
+    # mesh= runs the sharded twin; a transport without a mesh is refused.
+    with pytest.raises(ValueError, match="requires mesh"):
+        run_membership(cfg, 2, device="cpu", exchange="ring")
 
 
 def test_run_membership_without_gpu_raises():

@@ -368,6 +368,8 @@ def test_convert_round_trips_membership_states(cls_name):
 
 def test_run_membership_sparse_rejects_later_slice_knobs():
     cfg = SparseMembershipConfig(MembershipConfig(n=8), k_slots=4)
-    for kw in ({"mesh": object()}, {"exchange": "ring"}, {"telemetry": True}):
-        with pytest.raises(NotImplementedError):
-            run_membership_sparse(cfg, 2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        run_membership_sparse(cfg, 2, device="cpu", telemetry=True)
+    # mesh= runs the sharded twin; a transport without a mesh is refused.
+    with pytest.raises(ValueError, match="requires mesh"):
+        run_membership_sparse(cfg, 2, device="cpu", exchange="ring")

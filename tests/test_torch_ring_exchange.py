@@ -4,7 +4,12 @@ the JAX package's ``exchange="alltoall"`` path.
 The JAX ring kernel itself does not run on the installed jax (its
 ``pltpu.TPUCompilerParams`` is gone), so the port's ring is held against
 the JAX all_to_all transport, which the reference defines to be
-bit-equal to it, and against a brute-force numpy router.
+bit-equal to it, and against a brute-force numpy router.  The
+multi-plane entry point (C planes in their packed buffers straight into
+the inbox layout) is held against numpy at C in {1, 2, 4, 5}, with
+budgets and row pitches that break 16-byte alignment; on the CPU its
+wrapper takes the plain version, which ``chip_smoke.py`` holds the CUDA
+kernel against on the card.  Tolerance: bit-equality everywhere.
 """
 
 import jax
@@ -19,10 +24,16 @@ from consul_tpu.parallel.mesh import NODE_AXIS
 from consul_tpu.parallel.shard import exchange_outbox as j_exchange_outbox
 from consul_tpu.parallel.shard import outbox_budget as j_outbox_budget
 from consul_tpu.parallel.shard import pack_outbox as j_pack_outbox
-from consul_tpu_torch.ops import ring_exchange, ring_exchange_plain
+from consul_tpu_torch.ops import (
+    ring_exchange,
+    ring_exchange_plain,
+    ring_exchange_planes,
+    ring_exchange_planes_plain,
+)
 from consul_tpu_torch.parallel import (
     exchange_outbox,
     outbox_budget,
+    outbox_pitch,
     pack_outbox,
 )
 
@@ -191,3 +202,106 @@ def test_unknown_backend_rejected():
 ])
 def test_budget_formula_matches_jax(stream, shards):
     assert outbox_budget(stream, shards) == j_outbox_budget(stream, shards)
+
+
+def _packed_planes(d, c, budget, pitch, seed):
+    """C planes ``[D, D, budget]`` as views of ``[D, pitch]`` buffers (the
+    layout ``pack_outbox`` leaves), with numpy copies of their values."""
+    rng = np.random.default_rng(seed)
+    bufs = rng.integers(-2 ** 31, 2 ** 31 - 1, (c, d, pitch)).astype(np.int32)
+    planes = tuple(torch.from_numpy(b)[:, :d * budget].unflatten(
+        -1, (d, budget)) for b in bufs)
+    return planes, [b[:, :d * budget].reshape(d, d, budget) for b in bufs]
+
+
+# 62 keeps the alignment class of the 100k sparse budget (40062 = 2 mod 4).
+PLANE_BUDGETS = (7, 62, 64)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("c", [1, 2, 4, 5])
+@pytest.mark.parametrize("budget", PLANE_BUDGETS)
+def test_ring_planes_is_the_all_to_all_layout(d, c, budget):
+    """Each packed plane becomes ``[D_dst, D_src*budget]`` with row dst
+    holding what every source addressed to dst, at outbox_pitch and at
+    an odd pitch; the CPU wrapper launches nothing."""
+    for pitch in (outbox_pitch(d, budget), d * budget + 1):
+        planes, want = _packed_planes(d, c, budget, pitch, d * 31 + c)
+        before = ring_exchange.launches
+        for got in (ring_exchange_planes_plain(planes),
+                    ring_exchange_planes(planes)):
+            assert len(got) == c
+            for g, w in zip(got, want):
+                assert g.dtype == torch.int32 and g.is_contiguous()
+                np.testing.assert_array_equal(
+                    g.numpy(), w.transpose(1, 0, 2).reshape(d, d * budget))
+        assert ring_exchange.launches == before
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 5])
+def test_ring_box_is_the_planes_exchange(c):
+    """The box entry point and the planes entry point give one layout."""
+    d, budget = 8, 62
+    planes, _ = _packed_planes(d, c, budget, outbox_pitch(d, budget), c)
+    box = torch.stack(planes, dim=2).contiguous()
+    inbox = ring_exchange(box)
+    for i, got in enumerate(ring_exchange_planes(planes)):
+        assert torch.equal(inbox[:, :, i].reshape(d, d * budget), got)
+
+
+def test_ring_planes_checks_its_input():
+    planes, _ = _packed_planes(2, 2, 8, outbox_pitch(2, 8), 0)
+    with pytest.raises(TypeError, match="int32"):
+        ring_exchange_planes((planes[0].to(torch.int64),))
+    with pytest.raises(ValueError, match="shape"):
+        ring_exchange_planes((planes[0], planes[1][:, :, :4]))
+    with pytest.raises(ValueError, match="stride"):
+        ring_exchange_planes((planes[0], planes[1].contiguous()))
+    with pytest.raises(ValueError, match="unit stride"):
+        ring_exchange_planes((planes[0].transpose(1, 2),))
+    with pytest.raises(ValueError, match="1 to 8 planes"):
+        ring_exchange_planes(planes * 5)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ring_exchange_planes(tuple(p.to("meta") for p in planes))
+
+
+@pytest.mark.parametrize("d_shards,budget", [(2, 3), (4, 7), (8, 62)])
+def test_pack_outbox_pitch_keeps_the_packed_values(d_shards, budget):
+    """The packed rows start 16-byte aligned (pitch a multiple of 4, the
+    drop slot and padding after the slots), and the planes hold what the
+    JAX package's ``pack_outbox`` packs, shard by shard."""
+    rng = np.random.default_rng(d_shards)
+    a_len = 90
+    recv = rng.integers(0, 64, (d_shards, a_len)).astype(np.int32)
+    val = rng.integers(-50, 50, (d_shards, a_len)).astype(np.int32)
+    ok = rng.random((d_shards, a_len)) < 0.8
+    dest = torch.from_numpy(recv).long() // (64 // d_shards)
+    cols = (torch.from_numpy(recv), torch.from_numpy(val))
+    packed, dropped = pack_outbox(dest, torch.from_numpy(ok), cols,
+                                  d_shards, budget)
+    pitch = outbox_pitch(d_shards, budget)
+    assert pitch % 4 == 0 and pitch > d_shards * budget
+    for c, plane in enumerate(packed):
+        assert plane.shape == (d_shards, d_shards, budget)
+        assert plane.stride() == (pitch, budget, 1)
+        assert plane.storage_offset() == c * d_shards * pitch
+    jpack = jax.jit(j_pack_outbox, static_argnums=(3, 4))
+    for src in range(d_shards):
+        (j_r, j_v), j_drop = jpack(
+            jnp.asarray(dest[src].int().numpy()), jnp.asarray(ok[src]),
+            (jnp.asarray(recv[src]), jnp.asarray(val[src])), d_shards,
+            budget)
+        np.testing.assert_array_equal(packed[0][src].numpy(), np.asarray(j_r))
+        np.testing.assert_array_equal(packed[1][src].numpy(), np.asarray(j_v))
+        assert int(dropped[src]) == int(j_drop)
+    if budget == 3:
+        assert int(dropped.sum()) > 0
+
+
+def test_exchange_outbox_ring_equals_alltoall_at_five_planes():
+    """The sparse twin's five columns through both transports."""
+    d, budget = 4, 62
+    planes, _ = _packed_planes(d, 5, budget, outbox_pitch(d, budget), 9)
+    for a, b in zip(exchange_outbox(planes, backend="ring"),
+                    exchange_outbox(planes, backend="alltoall")):
+        assert torch.equal(a, b)
