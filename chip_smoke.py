@@ -73,6 +73,27 @@ Run from the root of the repository.  Phases, each fatal on failure:
      both overflows are 0; and both twins' ticks on CUDA held against the
      CPU (sparse K=16 at n=4096, dense at n=512), every field and output
      with its dtype on every tick, both transports.
+  9. the streamcast slice: the ring kernel at its three new outboxes
+     (``stream100k`` over 8 shards ``[8, 8, 3, 100000]`` and at 1M
+     ``[8, 8, 3, 1000000]``, ``event100k`` over 8 shards ``[8, 8, 1,
+     12500]``), bit for bit and timed as in phase 8; ``stream100k``'s
+     edges configuration over 8 shards at 100k (150 ticks) and 1M (60)
+     with both transports, equal to each other and to the unsharded run
+     on every tick with no outbox overflow, one ring launch a tick
+     (counted, and seen by ``torch.profiler``), and the window's
+     accounting identity; ``event100k`` over 8 shards with both
+     transports (equal, overflow 0), ``dev3``, ``probe1k`` over 8 shards
+     with the ring (all ten crashes detected); ``stream100k`` (aggregate,
+     150 ticks) for each policy with the accounting identity and events
+     delivered; the reference's own 1M study (``tests/test_streamcast.py``:
+     4-chunk events, 8 slots, rate 0.1, aggregate, 100 ticks) for the
+     uniform and pipeline policies; bench.py's sustained-load curve at 1M
+     (the paced stream, W=7, budget 4, rates 0.1 / 0.3 / 0.6 / 1.2, 150
+     ticks) for each policy, with its knee printed; and CUDA held against
+     the CPU at n=4096 on every tick (streamcast edges and aggregate for
+     each policy, the paced stream with a backlog, a hotspot and heavy
+     tails, a loss ramp, the sharded twin at D=8 with both transports,
+     and ``broadcast_round(alive=)`` at both deliveries).
 
 The next-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -127,6 +148,18 @@ GEO_STEPS = 160            # bench.py's geo section
 GEO_RING_SHAPE = (8, 8, 2, 64)
 GEO_PARITY_STEPS = 60
 VIVALDI_PARITY_ROUNDS = 50
+STREAM_N = 100_000         # stream100k's preset size
+STREAM_STEPS = 150         # stream100k's preset depth
+STREAM_1M_SHARD_STEPS = 60
+STREAM_REF_1M_STEPS = 100  # tests/test_streamcast.py:966-992
+EVENT_STEPS = 100          # event100k's depth
+# bench.py's sustained-load curve (_streaming_curve, _STREAM_WORK): the
+# paced stream at n=1M, one run per offered load and policy.
+CURVE_RATES = (0.1, 0.3, 0.6, 1.2)
+CURVE_STEPS = 150
+CURVE_WORK = dict(window=7, chunks=4, fanout=4, chunk_budget=4,
+                  done_frac=0.99)
+STREAM_PARITY_STEPS = 30
 
 # derive_wan_latency(8, B, tick_ms=200, seed=0, rounds=R, wan_window=8)
 # as computed with jax 0.9.0 on the CPU: (matrix, rel_rtt_error).
@@ -1152,8 +1185,8 @@ def ring_path_shapes(dev) -> list:
     ]
 
 
-def phase_ring_paths(dev) -> list:
-    """The rebuilt ring kernel at every path's shape, fed as the outbox
+def phase_ring_paths(dev, shapes) -> list:
+    """The rebuilt ring kernel at each ``(path, shape)``, fed as the outbox
     packer leaves its planes (one buffer, rows of ``outbox_pitch``) at
     buffer offsets 0 and 1 (rows off 16-byte alignment): bit for bit
     against its plain version; then the whole ``exchange_outbox`` on both
@@ -1170,7 +1203,7 @@ def phase_ring_paths(dev) -> list:
 
     gen = torch.Generator(device=dev).manual_seed(8)
     rows = []
-    for path, (d, _, c, budget) in ring_path_shapes(dev):
+    for path, (d, _, c, budget) in shapes:
         pitch = outbox_pitch(d, budget)
         max_err = 0
         for offset in (1, 0):
@@ -1366,6 +1399,417 @@ def phase_sharded_parity(dev) -> None:
                          dev, steps, 3)
 
 
+def stream_ring_shapes() -> list:
+    """(path, [D, D, C, budget]) of the streamcast slice's ring paths, from
+    the budgets the code computes for the studies that drive them."""
+    from consul_tpu_torch.parallel import outbox_budget
+    from consul_tpu_torch.sim.scenarios import (
+        event100k_config,
+        stream100k_config,
+    )
+
+    def stream(n):
+        cfg = stream100k_config(n, devices=SHARDS)
+        lanes = n // SHARDS * cfg.window * cfg.fanout
+        return (f"sharded_streamcast_scan(exchange='ring'), n={n}",
+                (SHARDS, SHARDS, 3, outbox_budget(lanes, SHARDS)))
+
+    return [
+        stream(STREAM_N),
+        stream(N_1M),
+        ("sharded_broadcast_scan(exchange='ring'), event100k",
+         (SHARDS, SHARDS, 1, outbox_budget(
+             STREAM_N // SHARDS * event100k_config(SHARDS).fanout, SHARDS))),
+    ]
+
+
+def check_stream_summary(s: dict, window: int, tag: str,
+                         delivers: bool = True) -> int:
+    """The window's accounting identity ``offered = delivered + quiesced +
+    overflow + coalesced + in_flight`` with ``0 <= in_flight <= W``, and
+    (where ``delivers``) events delivered; returns ``in_flight``."""
+    in_flight = (s["events_offered"] - s["events_delivered"]
+                 - s["events_quiesced"] - s["window_overflow"]
+                 - s["events_coalesced"])
+    check(0 <= in_flight <= window, f"{tag}: {in_flight} in flight")
+    check(s["events_offered"] > 0, f"{tag}: nothing offered")
+    check(not delivers or s["events_delivered"] > 0,
+          f"{tag}: nothing delivered")
+    return in_flight
+
+
+def stream_line(tag: str, card: str, rep, **extra) -> None:
+    s = rep.summary()
+    row = {"run": tag, "ticks": rep.ticks,
+           "rounds_per_sec": rep.rounds_per_sec, "wall_s": rep.wall_s,
+           **{k: s[k] for k in (
+               "events_offered", "events_delivered", "events_quiesced",
+               "events_coalesced", "window_overflow",
+               "delivered_events_per_sim_s", "t50_ms_median",
+               "t99_ms_median")},
+           "shard_overflow": rep.shard_overflow, **extra,
+           "device": rep.device, "card": card}
+    log("stream " + json.dumps(row))
+
+
+def phase_stream_presets(dev, card: str) -> None:
+    """stream100k (aggregate) per policy, the reference's own 1M config,
+    and bench.py's sustained-load curve at 1M per policy with its knee."""
+    import torch
+
+    from consul_tpu_torch import StreamcastConfig, run_streamcast
+    from consul_tpu_torch.sim.scenarios import stream100k, stream100k_config
+    from consul_tpu_torch.streamcast import POLICIES
+
+    window = stream100k_config().window
+    for policy in POLICIES:
+        s = stream100k(seed=0, policy=policy, device=dev)
+        check(s["scenario"] == "stream100k" and s["n"] == STREAM_N
+              and s["ticks"] == STREAM_STEPS and s["policy"] == policy,
+              "stream100k preset summary")
+        flight = check_stream_summary(s, window, f"stream100k {policy}")
+        log("stream " + json.dumps({**s, "in_flight": flight, "card": card}))
+
+    for policy in ("uniform", "pipeline"):
+        cfg = StreamcastConfig(
+            n=N_1M, events=64, chunks=4, window=8, fanout=4,
+            chunk_budget=2, rate=0.1, names=16, loss=0.05, done_frac=0.999,
+            delivery="aggregate", policy=policy)
+        torch.cuda.reset_peak_memory_stats()
+        rep = run_streamcast(cfg, STREAM_REF_1M_STEPS, seed=0, warmup=False,
+                             device=dev)
+        s = rep.summary()
+        flight = check_stream_summary(s, cfg.window, f"stream 1m {policy}")
+        check(s["t50_ms_median"] is not None, f"stream 1m {policy}: t50")
+        stream_line(f"stream_1m_{policy}", card, rep, in_flight=flight,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    t0 = time.perf_counter()
+    knees = {}
+    for policy in POLICIES:
+        knee = None
+        for rate in CURVE_RATES:
+            cfg = StreamcastConfig(
+                n=N_1M, events=int(max(CURVE_RATES) * CURVE_STEPS * 1.5),
+                rate=rate, loss=0.05, delivery="aggregate", policy=policy,
+                arrivals="paced", **CURVE_WORK)
+            rep = run_streamcast(cfg, CURVE_STEPS, seed=0, warmup=False,
+                                 device=dev)
+            s = rep.summary()
+            check_stream_summary(s, cfg.window, f"curve {policy} {rate}",
+                                 delivers=False)
+            if knee is None and s["window_overflow"] > 0:
+                knee = rate
+            stream_line(f"curve_1m_{policy}_rate{rate}", card, rep,
+                        offered_events_per_sim_s=s[
+                            "offered_events_per_sim_s"])
+        knees[policy] = knee
+    log(f"curve knees (first rate with window overflow) {json.dumps(knees)}"
+        f" in {time.perf_counter() - t0:.1f} s")
+
+
+def _same_outputs(a, b) -> bool:
+    return all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(a, b))
+
+
+def _stream_outputs(rep) -> tuple:
+    return (rep.slot_event, rep.slot_birth, rep.done_count, rep.offered,
+            rep.delivered, rep.quiesced, rep.window_overflow, rep.coalesced,
+            rep.sent)
+
+
+def _ring_kernels_profiled(run) -> int:
+    """Launches of the ring kernel that ``torch.profiler`` sees in ``run()``."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "ring" in e.key.lower())
+
+
+def phase_stream_sharded(dev, card: str) -> dict:
+    """stream100k over 8 logical shards at 100k and 1M (edges, both
+    transports): equal to each other and to the unsharded edges run on
+    every tick, outbox overflow 0, one ring launch a tick (counted, and
+    seen by the profiler); event100k over 8 shards with both transports;
+    dev3; probe1k over 8 shards with the ring.  Returns each ring study's
+    kernel launches."""
+    import torch
+
+    from consul_tpu_torch import mesh_for, run_streamcast
+    from consul_tpu_torch.ops import ring_exchange
+    from consul_tpu_torch.sim import scenarios
+    from consul_tpu_torch.sim.scenarios import (
+        dev3,
+        event100k,
+        probe1k,
+        stream100k_config,
+    )
+
+    launches = {}
+    for n, steps in ((STREAM_N, STREAM_STEPS), (N_1M, STREAM_1M_SHARD_STEPS)):
+        cfg = stream100k_config(n, steps, devices=SHARDS)
+        tag = f"stream_{n}_edges"
+        plain = run_streamcast(cfg, steps, seed=0, warmup=False, device=dev)
+        stream_line(f"{tag}_unsharded", card, plain)
+        runs = {}
+        for exchange in ("ring", "alltoall"):
+            torch.cuda.reset_peak_memory_stats()
+            ring_exchange.launches = 0
+            rep = run_streamcast(cfg, steps, seed=0, warmup=False,
+                                 mesh=mesh_for(SHARDS), exchange=exchange,
+                                 device=dev)
+            n_launch = ring_exchange.launches
+            stream_line(f"{tag}_d8_{exchange}", card, rep,
+                        ring_launches=n_launch,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            check(rep.shard_overflow == 0,
+                  f"{tag} {exchange}: outbox overflow {rep.shard_overflow}")
+            check(n_launch == (steps if exchange == "ring" else 0),
+                  f"{tag} {exchange}: ring kernel launched {n_launch} times")
+            runs[exchange] = _stream_outputs(rep)
+            if exchange == "ring":
+                launches[n] = n_launch
+        check(_same_outputs(runs["ring"], runs["alltoall"]),
+              f"{tag}: ring != alltoall")
+        check(_same_outputs(runs["ring"], _stream_outputs(plain)),
+              f"{tag}: sharded != unsharded")
+        # The exact edges path reaches 99.9% of n slowly (no slot retires
+        # inside these depths), so only the accounting is held here.
+        check_stream_summary(plain.summary(), cfg.window, tag,
+                             delivers=False)
+        log(f"{tag}: ring == alltoall == unsharded on every tick, overflow 0")
+    cfg = stream100k_config(STREAM_N, 5, devices=SHARDS)
+    seen = _ring_kernels_profiled(lambda: run_streamcast(
+        cfg, 5, seed=0, warmup=False, mesh=mesh_for(SHARDS),
+        exchange="ring", device=dev))
+    check(seen == 5, f"profiler saw {seen} ring kernels in 5 ticks")
+    log("profiler: one ring kernel a tick on the sharded streamcast twin")
+
+    # The preset returns a summary; its timed run's report is kept from the
+    # preset's own call so that the transports are compared on every tick
+    # without a third run of the study.
+    curves = {}
+    preset_run = scenarios.run_broadcast
+    for exchange in ("ring", "alltoall"):
+        reports = []
+
+        def kept(*args, **kw):
+            reports.append(preset_run(*args, **kw))
+            return reports[-1]
+
+        ring_exchange.launches = 0
+        scenarios.run_broadcast = kept
+        try:
+            summary = event100k(seed=0, devices=SHARDS, exchange=exchange,
+                                device=dev)
+        finally:
+            scenarios.run_broadcast = preset_run
+        n_launch = ring_exchange.launches
+        check(summary["shard_overflow"] == 0,
+              f"event100k {exchange}: overflow {summary['shard_overflow']}")
+        # The preset runs the study twice (warm-up, then timed), as the
+        # reference's event100k does.
+        check(n_launch == (2 * EVENT_STEPS if exchange == "ring" else 0),
+              f"event100k {exchange}: {n_launch} ring launches")
+        log("event100k " + json.dumps({**summary, "ring_launches": n_launch,
+                                       "card": card}))
+        if exchange == "ring":
+            launches["event100k"] = n_launch
+        curves[exchange] = reports[-1].infected
+    check(np.array_equal(curves["ring"], curves["alltoall"]),
+          "event100k: ring != alltoall")
+    check(int(curves["ring"][-1]) == STREAM_N, "event100k: not all reached")
+
+    small = dev3(seed=0, device=dev)
+    check(small["infected_final"] == 3, "dev3: the event missed a node")
+    log("dev3 " + json.dumps(small))
+    summary = probe1k(seed=0, devices=SHARDS, exchange="ring", device=dev)
+    check(summary["all_detected"], "probe1k over 8 shards: a crash missed")
+    log("probe1k_d8_ring " + json.dumps({**summary, "card": card}))
+    return launches
+
+
+def phase_stream_parity(dev) -> None:
+    """The streamcast slice on the card against the CPU at n=4096, every
+    field and output with its dtype on every tick: edges and aggregate for
+    all three policies (Poisson with names), the paced stream with a
+    backlog, a hotspot and ``size_tail=1.0``, a loss ramp, the sharded
+    twin at D=8 with both transports, and ``broadcast_round(alive=)`` at
+    both deliveries.  An aggregate tick where a receiver's uniform lies
+    between the card's and the CPU's threshold is checked by that rule
+    and not compared further."""
+    import torch
+
+    from consul_tpu_torch import BroadcastConfig, StreamcastConfig
+    from consul_tpu_torch.models import broadcast_init, broadcast_round
+    from consul_tpu_torch.ops import PRNGKey, fold_in, owned_uniform, split
+    from consul_tpu_torch.parallel import mesh_for, sharded_streamcast_scan
+    from consul_tpu_torch.sim import LossRamp, FaultSchedule
+    from consul_tpu_torch.streamcast import (
+        POLICIES,
+        arrival_arrays,
+        streamcast_init,
+        streamcast_round,
+    )
+    from consul_tpu_torch.streamcast.model import (
+        _SCHED_SALT,
+        _p_live,
+        admit_stage,
+        aggregate_rate,
+        round_keys,
+        service_stage,
+    )
+
+    def thresholds_agree(lam_card, lam_cpu, u_card, u_cpu) -> int:
+        lam_card, u_card = lam_card.cpu(), u_card.cpu()
+        check(torch.equal(lam_card, lam_cpu), "aggregate rates CUDA != CPU")
+        check(torch.equal(u_card, u_cpu), "aggregate uniforms CUDA != CPU")
+        thr = [(-torch.expm1(-lam)).cpu() for lam in (lam_card.to(dev),
+                                                     lam_cpu)]
+        truth = (-torch.expm1(-lam_cpu.double())).float()
+        for t in thr:
+            gap = (t.view(torch.int32).long()
+                   - truth.view(torch.int32).long()).abs()
+            check(int(gap.max()) <= 1, "threshold > 1 ulp from float64")
+        flip = (u_cpu < thr[0]) != (u_cpu < thr[1])
+        lo = torch.minimum(*thr)[flip]
+        hi = torch.maximum(*thr)[flip]
+        check(bool(((lo <= u_cpu[flip]) & (u_cpu[flip] < hi)).all()),
+              "receiver differs outside the threshold band")
+        return int(flip.sum())
+
+    def stream_flips(cfg, state, key, sched) -> int:
+        rows = torch.arange(cfg.n, dtype=torch.int32)
+        per = []
+        for where in (dev, "cpu"):
+            st = type(state)(*(x.to(where) for x in state))
+            k = key.to(where)
+            _, k_loss, k_tie, k_chunk = round_keys(k)
+            sc = tuple(x.to(where) for x in sched)
+            adm = admit_stage(st, cfg, sc, rows.to(where))
+            held, serviced, sel, _ = service_stage(cfg, k_tie, k_chunk,
+                                                   rows.to(where), adm)
+            lam = aggregate_rate(cfg, held, serviced, sel,
+                                 _p_live(cfg, st.tick), lambda x: torch.sum(
+                                     x, dim=0, dtype=x.dtype))
+            per.append((lam, owned_uniform(k_loss, rows.to(where),
+                                           (cfg.window, cfg.chunks))))
+        return thresholds_agree(per[0][0], per[1][0].cpu(), per[0][1],
+                                per[1][1].cpu())
+
+    base = dict(n=SMALL_N, events=40, chunks=4, window=4, fanout=3,
+                chunk_budget=2, loss=0.1, done_frac=0.99)
+    cases = [(f"stream_{d}_{p}", StreamcastConfig(
+        **base, rate=0.5, names=6, delivery=d, policy=p))
+        for d in ("edges", "aggregate") for p in POLICIES]
+    cases += [
+        ("stream_paced_backlog_hotspot_tail", StreamcastConfig(
+            **base, rate=0.6, arrivals="paced", backlog=3, hotspot=0.3,
+            hotspot_node=7, size_tail=1.0, policy="pipeline")),
+        ("stream_loss_ramp", StreamcastConfig(
+            **base, rate=0.5, names=6, policy="rarest",
+            faults=FaultSchedule(ramps=(LossRamp(((5, 0.3), (15, 0.0))),)))),
+    ]
+    for tag, cfg in cases:
+        key = PRNGKey(3, device=dev)
+        scheds = {where: arrival_arrays(cfg, fold_in(key.to(where),
+                                                     _SCHED_SALT))
+                  for where in ("cpu", dev)}
+        for a, b in zip(scheds["cpu"], scheds[dev]):
+            check(a.dtype == b.dtype and torch.equal(a, b.cpu()),
+                  f"{tag}: arrival schedule CUDA != CPU")
+        state = streamcast_init(cfg, device=dev)
+        flipped = skipped = 0
+        for t in range(STREAM_PARITY_STEPS):
+            k = fold_in(key, t)
+            before = to_cpu(state)
+            want, want_out = streamcast_round(before, k.cpu(), cfg,
+                                              scheds["cpu"])
+            state, out = streamcast_round(state, k, cfg, scheds[dev])
+            if cfg.delivery == "aggregate":
+                f = stream_flips(cfg, before, k.cpu(), scheds["cpu"])
+                flipped += f
+                if f:
+                    skipped += 1
+                    continue
+            diff = state_diff(want, to_cpu(state))
+            check(not diff, f"{tag} tick {t}: {diff} CUDA != CPU")
+            for i, (a, b) in enumerate(zip(want_out, out)):
+                check(a.dtype == b.dtype and torch.equal(a, b.cpu()),
+                      f"{tag} tick {t}: output {i} CUDA != CPU")
+        check(int(state.delivered) + int(state.coalesced) > 0,
+              f"{tag}: nothing delivered or coalesced")
+        log(f"{tag}: CUDA == CPU, every field on every tick, "
+            f"{STREAM_PARITY_STEPS} ticks at n={SMALL_N}"
+            + (f", {flipped} near-threshold receivers ({skipped} ticks)"
+               if cfg.delivery == "aggregate" else ""))
+
+    for exchange in ("ring", "alltoall"):
+        cfg = StreamcastConfig(**base, rate=0.5, names=6, policy="pipeline")
+        got = {}
+        for where in ("cpu", dev):
+            final, outs = sharded_streamcast_scan(
+                streamcast_init(cfg, device=where), PRNGKey(3, device=where),
+                cfg, STREAM_PARITY_STEPS, mesh_for(SHARDS, where), exchange)
+            got[str(where)] = (to_cpu(final), tuple(o.cpu() for o in outs))
+        (f_c, o_c), (f_d, o_d) = got["cpu"], got[str(dev)]
+        check(not state_diff(f_c, f_d), f"sharded {exchange}: final state")
+        for i, (a, b) in enumerate(zip(o_c, o_d)):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"sharded {exchange}: output {i} CUDA != CPU")
+        log(f"sharded streamcast D={SHARDS} {exchange}: CUDA == CPU on every "
+            f"tick, {STREAM_PARITY_STEPS} ticks")
+
+    alive = torch.ones(SMALL_N, dtype=torch.bool)
+    alive[100:900] = False
+    for delivery in ("edges", "aggregate"):
+        cfg = BroadcastConfig(n=SMALL_N, fanout=3, loss=0.1,
+                              delivery=delivery)
+        state = broadcast_init(cfg, origin=0, device=dev)
+        key = PRNGKey(5, device=dev)
+        flipped = 0
+        for t in range(STREAM_PARITY_STEPS):
+            k = fold_in(key, t)
+            before = to_cpu(state)
+            want = broadcast_round(before, k.cpu(), cfg, alive)
+            state = broadcast_round(state, k, cfg, alive.to(dev))
+            skip = None
+            if delivery == "aggregate":
+                k_loss = split(k.cpu())[1]
+                per = []
+                for where in (dev, "cpu"):
+                    snd = (before.knows & (before.tx_left > 0)
+                           & alive).to(where)
+                    lam = (torch.sum(snd, dtype=torch.float32)
+                           - snd.to(torch.float32)) * 3.0
+                    lam = lam * torch.full((), 0.9, dtype=torch.float32,
+                                           device=where)
+                    lam = lam / torch.clamp(torch.sum(
+                        alive.to(where), dtype=torch.float32) - 1.0, min=1.0)
+                    ids = torch.arange(SMALL_N, dtype=torch.int32,
+                                       device=where)
+                    per.append((lam, owned_uniform(k_loss.to(where), ids)))
+                f = thresholds_agree(per[0][0], per[1][0], per[0][1],
+                                     per[1][1])
+                flipped += f
+                if f:
+                    continue
+            diff = state_diff(want, to_cpu(state), skip)
+            check(not diff, f"broadcast alive {delivery} tick {t}: {diff}")
+        knows = state.knows.cpu()
+        check(not bool(knows[100:900].any()), "a dead node learned the event")
+        log(f"broadcast_round(alive=) {delivery}: CUDA == CPU on every tick, "
+            f"{STREAM_PARITY_STEPS} ticks at n={SMALL_N}"
+            + (f", {flipped} near-threshold receivers"
+               if delivery == "aggregate" else ""))
+
+
 def main() -> int:
     import torch
 
@@ -1394,22 +1838,31 @@ def main() -> int:
     phase_geo_parity(dev, latency)
     log(f"geo slice phase passed in {time.perf_counter() - t7:.1f} s")
     t8 = time.perf_counter()
-    paths = phase_ring_paths(dev)
+    paths = phase_ring_paths(dev, ring_path_shapes(dev))
     study_launches = phase_sharded_membership(dev, card, membership_reports)
     phase_sharded_parity(dev)
     log(f"sharded membership phase passed in {time.perf_counter() - t8:.1f}"
         " s")
+    t9 = time.perf_counter()
+    stream_paths = phase_ring_paths(dev, stream_ring_shapes())
+    stream_launches = phase_stream_sharded(dev, card)
+    phase_stream_presets(dev, card)
+    phase_stream_parity(dev)
+    log(f"streamcast phase passed in {time.perf_counter() - t9:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     # Every ring path with the launches of the study that drives it; the
-    # largest (the sparse 1M outbox) heads the line.
-    for row, n_launch in zip(paths, (
+    # largest (the 1M streamcast outbox) heads the line.
+    for row, n_launch in zip(paths + stream_paths, (
             broadcast_launches, geo_launches,
             study_launches["membership_dense_16k_d8"],
             study_launches["membership_sparse_100k_cold_d8"],
-            study_launches["membership_sparse_1m_cold_d8"])):
+            study_launches["membership_sparse_1m_cold_d8"],
+            stream_launches[STREAM_N], stream_launches[N_1M],
+            stream_launches["event100k"])):
         row["launches"] = n_launch
-    head = paths[-1]
+    paths = paths + stream_paths
+    head = max(paths, key=lambda row: np.prod(row["shape"]))
     kernel = {
         "name": "ring_exchange", "route": "cuda",
         "source": "consul_tpu_torch/csrc/ring_exchange.cu",

@@ -18,12 +18,15 @@ Layout (mirrors the JAX package):
     coordinates.
   - ``geo``      -- the geo/WAN plane: Vivaldi-derived link latencies,
     bandwidth-capped delayed links with adaptive anti-entropy.
+  - ``streamcast`` -- the pipelined chunked event stream under sustained
+    load: the in-flight window, chunk selection policies, reports.
   - ``parallel`` -- D logical shards on one device, the outbox router.
   - ``sim``      -- ``run_broadcast``, ``run_swim``, ``run_lifeguard``,
     ``run_membership``, ``run_membership_sparse``, ``run_multidc``,
-    ``run_geo``, fault schedules, reports, and the BASELINE presets
-    ``probe1k``, ``suspect1m``, ``degraded1m``, ``multidc1m`` and
-    ``geo100k`` (``sim.scenarios``).
+    ``run_geo``, ``run_streamcast``, fault schedules, offered-load
+    generators, reports, and the BASELINE presets ``dev3``, ``probe1k``,
+    ``event100k``, ``stream100k``, ``suspect1m``, ``degraded1m``,
+    ``multidc1m`` and ``geo100k`` (``sim.scenarios``).
   - ``convert``  -- numpy bridges for state and keys.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
@@ -45,9 +48,11 @@ from consul_tpu_torch.sim import (
     run_membership,
     run_membership_sparse,
     run_multidc,
+    run_streamcast,
     run_swim,
 )
 from consul_tpu_torch.geo import GeoConfig  # noqa: E402 (needs sim first)
+from consul_tpu_torch.streamcast import StreamcastConfig  # noqa: E402
 
 __all__ = [
     "BroadcastConfig",
@@ -56,6 +61,7 @@ __all__ = [
     "MembershipConfig",
     "MultiDCConfig",
     "SparseMembershipConfig",
+    "StreamcastConfig",
     "SwimConfig",
     "make_mesh",
     "mesh_for",
@@ -65,5 +71,6 @@ __all__ = [
     "run_membership",
     "run_membership_sparse",
     "run_multidc",
+    "run_streamcast",
     "run_swim",
 ]

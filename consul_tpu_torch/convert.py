@@ -24,10 +24,11 @@ def _port_state_classes() -> dict:
         SwimState,
         VivaldiState,
     )
+    from consul_tpu_torch.streamcast.model import StreamcastState
 
     return {cls.__name__: cls for cls in (
         BroadcastState, GeoState, MembershipState, MultiDCState,
-        SparseMembershipState, SwimState, VivaldiState)}
+        SparseMembershipState, StreamcastState, SwimState, VivaldiState)}
 
 
 def key_from_numpy(key, device="cpu") -> torch.Tensor:
@@ -44,7 +45,7 @@ def state_from_numpy(state, device="cpu", state_cls=None):
     leaf and dtype for dtype; 0-d leaves (``tick``) stay 0-dim.  Without
     ``state_cls``, the port's class of the same name as the state's
     (``BroadcastState``, ``SwimState``, ``MultiDCState``, ``GeoState``,
-    ``VivaldiState``, ...)."""
+    ``VivaldiState``, ``StreamcastState``, ...)."""
     if state_cls is None:
         name = type(state).__name__
         state_cls = _port_state_classes().get(name)

@@ -10,8 +10,8 @@ re-queue (serf/serf.go:459-516, memberlist/queue.go:288-373), as one
   tx_left[i]  -- remaining transmissions of the event by node i; fresh
                  recipients get retransmit_limit(mult, n) of them.
 
-One tick is one GossipInterval.  The alive-masked round waits for the
-Lifeguard slice.
+One tick is one GossipInterval.  An ``alive`` mask takes dead nodes out
+of the sender set and the target pool.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from consul_tpu_torch.ops import (
     aggregate_arrivals,
     bernoulli_mask,
     deliver_or,
+    sample_alive_peers,
     sample_peers,
     split,
 )
@@ -97,21 +98,32 @@ def spend_budget(state: BroadcastState, new_knows: torch.Tensor,
 
 
 def broadcast_round(state: BroadcastState, key: torch.Tensor,
-                    cfg: BroadcastConfig) -> BroadcastState:
-    """One gossip tick."""
+                    cfg: BroadcastConfig,
+                    alive: torch.Tensor = None) -> BroadcastState:
+    """One gossip tick.  ``alive`` (bool[n], optional) masks nodes that
+    neither send, relay nor count as targets: live senders draw their
+    fanout from the alive pool only (kRandomNodes skips dead members,
+    memberlist/state.go:575-585) and dead nodes never learn the event."""
     n, fanout = cfg.n, cfg.fanout
     k_sel, k_loss = split(key).unbind(-2)
     senders = state.knows & (state.tx_left > 0)
+    if alive is not None:
+        senders = senders & alive
 
     if cfg.delivery == "edges":
         # Each node picks its gossip targets (memberlist/state.go:575-585
         # kRandomNodes over the member list, excluding self).
-        targets = sample_peers(k_sel, n, fanout)                # [n, f]
+        if alive is None:
+            targets = sample_peers(k_sel, n, fanout)            # [n, f]
+        else:
+            targets = sample_alive_peers(k_sel, alive, fanout)
         delivered = senders[:, None] & bernoulli_mask(
             k_loss, (n, fanout), 1.0 - cfg.loss
         )
+        if alive is not None:
+            delivered = delivered & alive[targets.long()]
         new_knows = deliver_or(state.knows, targets, delivered)
     else:
-        got = aggregate_arrivals(k_loss, senders, fanout, cfg.loss, n)
+        got = aggregate_arrivals(k_loss, senders, fanout, cfg.loss, n, alive)
         new_knows = state.knows | got
     return spend_budget(state, new_knows, senders, cfg)

@@ -78,6 +78,37 @@ def sample_peers(key: torch.Tensor, n: int, fanout: int) -> torch.Tensor:
     return sample_peers_owned(key, ids, n, fanout)
 
 
+def sample_alive_peers_owned(key: torch.Tensor, ids: torch.Tensor,
+                             alive: torch.Tensor, fanout: int) -> torch.Tensor:
+    """Each owned node picks ``fanout`` peers uniformly among the ALIVE
+    nodes other than itself (kRandomNodes filters dead and left members,
+    memberlist/util.go:131-153): int32 ``[*ids.shape, fanout]`` of global
+    ids.
+
+    The alive ordering (the alive-first index table and the alive count)
+    is a function of the whole ``alive`` plane; the draws are owned: from
+    [0, A-1) with the alive count A as a tensor bound, shifted past the
+    row's own alive rank, then mapped through the table.  Dead rows draw
+    too; the caller masks their packets."""
+    n = alive.shape[0]
+    cnt = torch.sum(alive, dtype=torch.int32)
+    order = torch.sort((~alive).to(torch.int8), stable=True).indices
+    rank = torch.empty(n, dtype=torch.int32, device=alive.device)
+    rank[order] = torch.arange(n, dtype=torch.int32, device=alive.device)
+    draws = owned_randint(key, ids, (fanout,), 0, torch.clamp(cnt - 1, min=1))
+    own = rank[ids.long()][..., None]
+    draws = torch.where(draws >= own, draws + 1, draws)
+    return order.to(torch.int32)[(draws % torch.clamp(cnt, min=1)).long()]
+
+
+def sample_alive_peers(key: torch.Tensor, alive: torch.Tensor,
+                       fanout: int) -> torch.Tensor:
+    """:func:`sample_alive_peers_owned` over ``arange(n)``: int32
+    ``[n, fanout]``."""
+    ids = torch.arange(alive.shape[0], dtype=torch.int32, device=key.device)
+    return sample_alive_peers_owned(key, ids, alive, fanout)
+
+
 def sample_probe_targets_owned(key: torch.Tensor, ids: torch.Tensor,
                                n: int) -> torch.Tensor:
     """One probe target per owned node per probe round (memberlist probes
@@ -132,13 +163,26 @@ def arrival_rate(s_total: torch.Tensor, senders: torch.Tensor, fanout: int,
 
 
 def aggregate_arrivals(key: torch.Tensor, senders: torch.Tensor, fanout: int,
-                       loss: float, n: int) -> torch.Tensor:
+                       loss: float, n: int,
+                       alive: torch.Tensor = None) -> torch.Tensor:
     """bool[n]: received >= 1 copy under Poissonized push-gossip delivery
     (S senders, each pushing ``fanout`` copies to uniform non-self
     targets, each copy surviving loss independently), so
     P(>= 1 copy) = 1 - exp(-lambda).  A sender's own copies are not in
-    its lambda.  The alive-masked form waits for the Lifeguard slice."""
+    its lambda.
+
+    ``alive`` (bool[n]) is the aggregate dual of
+    :func:`sample_alive_peers`: the copies spread over the other A-1
+    alive nodes (the float32 denominator ``max(A - 1, 1)``) and dead
+    receivers hear nothing."""
     s_total = torch.sum(senders, dtype=torch.float32)
-    return poissonized_arrivals(
-        key, arrival_rate(s_total, senders, fanout, loss, n)
-    )
+    if alive is None:
+        return poissonized_arrivals(
+            key, arrival_rate(s_total, senders, fanout, loss, n)
+        )
+    dev = senders.device
+    lam = (s_total - senders.to(torch.float32)) * _f32(fanout, dev)
+    lam = lam * _f32(1.0 - loss, dev)
+    lam = lam / torch.clamp(torch.sum(alive, dtype=torch.float32) - 1.0,
+                            min=1.0)
+    return poissonized_arrivals(key, lam) & alive

@@ -12,9 +12,10 @@ so the port reproduces that generator exactly:
 * :func:`random_bits`, :func:`uniform` and :func:`randint` — the draws
   (``prng.py`` ``_threefry_random_bits_partitionable``;
   ``jax/_src/random.py`` ``_uniform``, ``_randint``);
-* :func:`normal` and :func:`poisson` — ``jax/_src/random.py``
-  ``_normal_real`` and ``_poisson`` (Knuth below lam 10, Hormann's
-  transformed rejection above), over the float32 functions of
+* :func:`normal`, :func:`exponential` and :func:`poisson` —
+  ``jax/_src/random.py`` ``_normal_real``, ``_exponential`` and
+  ``_poisson`` (Knuth below lam 10, Hormann's transformed rejection
+  above), over the float32 functions of
   :mod:`consul_tpu_torch.ops.xla_math`.
 
 A key is an int64 tensor of shape ``[..., 2]`` holding two uint32
@@ -140,6 +141,12 @@ def normal(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
     sqrt2 = torch.full((), float(np.float32(np.sqrt(2))), dtype=torch.float32,
                        device=key.device)
     return sqrt2 * xla_math.erf_inv(u)
+
+
+def exponential(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+    """float32 ``jax.random.exponential``: ``-log1p(-u)`` with ``u``
+    uniform in [0, 1) and ``log1p`` as XLA evaluates it."""
+    return -xla_math.log1p(-uniform(key, shape))
 
 
 # Knuth iterations between two host reads of the loop predicate.

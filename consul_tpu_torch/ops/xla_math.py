@@ -20,6 +20,11 @@ PyTorch's CPU square root is not correctly rounded).  Held bit for bit against
 the JAX package on the CPU by ``tests/test_torch_geo_random.py``.
 ``expm1`` is not reproduced: its XLA form below |x| = 0.5 is not these
 polynomials, and its callers keep the arrival-threshold rule.
+
+Two more of the compiled program's choices are spelled out here:
+:func:`cumsum`, the order in which XLA's CPU backend adds a float32
+prefix sum, and :func:`pow`, whose float32 result XLA takes from the C
+library's ``powf``.
 """
 
 from __future__ import annotations
@@ -162,3 +167,54 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     for lo, hi in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = fma(p, w, torch.where(lt, _c(lo, x), _c(hi, x)))
     return torch.where(torch.abs(x) == 1.0, x * math.inf, p * x)
+
+
+# Block length of XLA's reduce-window rewrite of a prefix sum.
+_SCAN_BLOCK = 16
+
+
+def _block_scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis (at most one block long),
+    added one element after the other from zero."""
+    cols = [x[..., 0] + _c(0.0, x)]
+    for j in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., j])
+    return torch.stack(cols, dim=-1)
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``jnp.cumsum`` along the last axis as XLA's CPU backend adds
+    it.  The prefix sum lowers to a reduce-window, which XLA rewrites
+    into blocks of 16: the input, padded with zeros to whole blocks, is
+    summed in order inside each block; the block totals get the same
+    treatment recursively, and each block then adds the (exclusive)
+    prefix of the totals before it.  Up to 16 elements it is the
+    sequential sum.  Every step is one float32 add, so CUDA and the CPU
+    agree (``torch.cumsum`` on the CPU accumulates in float64)."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return _block_scan(x) if n else x.clone()
+    nb = -(-n // _SCAN_BLOCK)
+    pad = torch.zeros((*x.shape[:-1], nb * _SCAN_BLOCK - n), dtype=x.dtype,
+                      device=x.device)
+    blocks = _block_scan(torch.cat((x, pad), dim=-1)
+                         .unflatten(-1, (nb, _SCAN_BLOCK)))
+    totals = cumsum(blocks[..., -1])
+    carry = torch.cat((torch.zeros_like(totals[..., :1]), totals[..., :-1]),
+                      dim=-1)
+    return (blocks + carry[..., None]).flatten(-2)[..., :n]
+
+
+def pow(x: torch.Tensor, exponent: float) -> torch.Tensor:  # noqa: A001
+    """float32 ``x ** exponent`` for a constant float32 ``exponent``, as
+    the reference's compiled program gives it.  XLA rewrites a power of
+    -1 into the reciprocal, which is reproduced exactly.  Any other power
+    it takes from glibc's ``powf``, which is not reproduced: the port
+    takes the power in float64 and rounds once, which lands within an ulp
+    of ``powf`` (0.06% of float32 uniforms differ).  Where the result is
+    floored to a small integer, ``tests/test_torch_streamcast.py``
+    enumerates every float32 input near each step and finds no
+    difference."""
+    if exponent == -1.0:
+        return _c(1.0, x) / x
+    return torch.pow(x.to(torch.float64), float(exponent)).to(_F32)

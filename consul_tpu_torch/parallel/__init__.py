@@ -21,6 +21,7 @@ from consul_tpu_torch.parallel.shard import (
     sharded_sparse_membership_round,
     sharded_sparse_membership_scan,
     sharded_sparse_plan,
+    sharded_streamcast_scan,
 )
 
 __all__ = [
@@ -42,4 +43,5 @@ __all__ = [
     "sharded_sparse_membership_round",
     "sharded_sparse_membership_scan",
     "sharded_sparse_plan",
+    "sharded_streamcast_scan",
 ]

@@ -1,7 +1,7 @@
 """The sharded simulation plane over D logical shards on one device.
 
 The port of ``consul_tpu/parallel/shard.py`` (the broadcast, dense and
-sparse membership, and geo families).  Shard
+sparse membership, geo and streamcast families).  Shard
 ``me`` owns the contiguous block of global ids ``[me*blk, (me+1)*blk)``;
 every per-node plane is ``[D, blk]``, and one sharded round decomposes as
 in the reference:
@@ -706,3 +706,104 @@ def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
             ewma=step.ewma, wasted=step.wasted, tick=st.tick + 1,
         )
     return st, outs
+
+
+def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
+                            mesh: Mesh, exchange: str = "alltoall"):
+    """Sharded twin of ``sim.engine.streamcast_scan`` (cfg: a
+    StreamcastConfig).
+
+    Shard ``me`` owns rows ``[me*blk, (me+1)*blk)`` of the ``[n, W, E]``
+    chunk plane and the ``[n, W]`` budget and cursor planes, viewed
+    ``[D, blk, ...]``; the window and every counter are replicated (the
+    allocator is a function of the replicated schedule) and stepped once.
+    Draws are owned, over the global ids of each shard's rows.  Edges
+    messages to a node of the same shard land directly; the rest ride the
+    per-destination outbox with the three columns ``(recv, slot,
+    chunk)``, exchanged through ``exchange`` (``"alltoall"`` | ``"ring"``:
+    one ring-kernel launch a tick for the three planes).  The aggregate
+    path shares only each shard's ``[W, E]`` sender counts, whose sums are
+    exact in any order.  Returns ``(final_state, (*outs, overflow))``
+    with the unsharded scan's outputs and the running outbox overflow
+    a tick; D == 1 equals the unsharded scan."""
+    from consul_tpu_torch.sim.engine import streamcast_outputs
+    from consul_tpu_torch.streamcast.model import (
+        _SCHED_SALT,
+        StreamcastState,
+        _p_live,
+        admit_stage,
+        aggregate_arrivals_chunks,
+        aggregate_rate,
+        arrival_arrays,
+        chunk_index,
+        edge_messages,
+        finish_stage,
+        round_keys,
+        service_stage,
+    )
+
+    _check_backend(exchange)
+    n, w_slots, e_chunks = cfg.n, cfg.window, cfg.chunks
+    d_shards = mesh.n_shards
+    blk = block_size(n, mesh)
+    _check_mesh_state(state.chunks, mesh, n)
+    dev = state.chunks.device
+    budget = (outbox_budget(blk * w_slots * cfg.fanout, d_shards)
+              if cfg.delivery == "edges" else 1)
+    me = torch.arange(d_shards, dtype=torch.int64, device=dev)[:, None]
+    rows_g = _shard_rows(n, d_shards, dev)
+    size = n * w_slots * e_chunks
+
+    def shard_sum(x):
+        # Each shard's sum over its rows, then the sum over shards (psum).
+        return torch.sum(torch.sum(x, dim=1, dtype=x.dtype), dim=0,
+                         dtype=x.dtype)
+
+    sched = arrival_arrays(cfg, fold_in(key, _SCHED_SALT))
+    outs = (*streamcast_outputs(cfg, steps, dev),
+            torch.empty(steps, dtype=torch.int32, device=dev))
+    ob_ov = torch.zeros((), dtype=torch.int32, device=dev)
+    st = state._replace(
+        chunks=state.chunks.view(d_shards, blk, w_slots, e_chunks),
+        tx_left=state.tx_left.view(d_shards, blk, w_slots),
+        cursor=state.cursor.view(d_shards, blk, w_slots),
+    )
+    for t in range(steps):
+        k_sel, k_loss, k_tie, k_chunk = round_keys(fold_in(key, t))
+        adm = admit_stage(st, cfg, sched, rows_g)
+        held_real, serviced, sel, cursor = service_stage(
+            cfg, k_tie, k_chunk, rows_g, adm)
+        p_live = _p_live(cfg, st.tick)
+        if cfg.delivery == "edges":
+            recv, wix, cix, ok = edge_messages(cfg, k_sel, k_loss, rows_g,
+                                               serviced, sel, p_live)
+            dest = recv.to(torch.int64) // blk
+            local = ok & (dest == me)
+            # Shard me's local index of (recv, w, c) is the global index
+            # of the flattened [D*blk, W, E] plane.
+            hits = torch.zeros(size + 1, dtype=torch.bool, device=dev)
+            hits[torch.where(local, chunk_index(cfg, recv, wix, cix),
+                             size).reshape(-1)] = True
+            packed, dropped = pack_outbox(dest, ok & (dest != me),
+                                          (recv, wix, cix), d_shards, budget)
+            ib_recv, ib_w, ib_c = exchange_outbox(packed, backend=exchange)
+            hits[torch.where(ib_recv >= 0,
+                             chunk_index(cfg, ib_recv, ib_w, ib_c),
+                             size).reshape(-1)] = True
+            new_chunks = adm.chunks | hits[:size].view(adm.chunks.shape)
+            ob_ov = ob_ov + torch.sum(dropped, dtype=torch.int32)
+        else:
+            lam = aggregate_rate(cfg, held_real, serviced, sel, p_live,
+                                 shard_sum)
+            new_chunks = adm.chunks | aggregate_arrivals_chunks(
+                cfg, k_loss, rows_g, lam)
+        st, out = finish_stage(st, cfg, adm, new_chunks, serviced, cursor,
+                               shard_sum)
+        for o, v in zip(outs, (*out, ob_ov)):
+            o[t] = v
+    final = st._replace(
+        chunks=st.chunks.reshape(n, w_slots, e_chunks),
+        tx_left=st.tx_left.reshape(n, w_slots),
+        cursor=st.cursor.reshape(n, w_slots),
+    )
+    return StreamcastState(*final), outs

@@ -16,7 +16,11 @@ the Vivaldi-derived latencies) and the same over 8 logical shards with the
 ring transport; then the sharded membership twins over 8 logical shards
 with the ring transport beside the unsharded runs: the sparse model at
 100k nodes cold (its first 30 ticks, unsharded and sharded), at 1M cold
-(10 ticks) and the dense model at 16384 nodes (10 ticks).
+(10 ticks) and the dense model at 16384 nodes (10 ticks); then the
+streamcast slice: the reference's 1M sustained-load study (4-chunk
+events, 8 slots, aggregate, 100 ticks) with the uniform and the pipeline
+policy, and ``stream100k``'s edges configuration at 1M nodes over 8
+logical shards with the ring transport (60 ticks).
 
 Each study runs once to warm up, once timed over all its ticks without
 the profiler (rounds/s), and over a shorter window twice: once timed
@@ -53,6 +57,8 @@ DENSE_N = 16384
 MULTIDC_STEPS = 120
 GEO_STEPS = 160
 SPARSE_COLD_STEPS = 30   # bench.py's cold run at 100k
+STREAM_STEPS = 100       # the reference's 1M sustained-load study
+STREAM_SHARD_STEPS = 60
 
 # Kernel-name fragments -> the layer that launches them.  The threefry
 # draws are elementwise int64 arithmetic; everything elementwise that is
@@ -171,6 +177,7 @@ def main() -> int:
         MembershipConfig,
         MultiDCConfig,
         SparseMembershipConfig,
+        StreamcastConfig,
         SwimConfig,
         mesh_for,
         run_broadcast,
@@ -179,6 +186,7 @@ def main() -> int:
         run_geo,
         run_membership_sparse,
         run_multidc,
+        run_streamcast,
         run_swim,
     )
     from consul_tpu_torch.geo import derive_wan_latency
@@ -189,6 +197,7 @@ def main() -> int:
     from consul_tpu_torch.sim.scenarios import (
         degraded1m_environment,
         geo_ab_config,
+        stream100k_config,
     )
 
     card = subprocess.run(
@@ -214,6 +223,11 @@ def main() -> int:
     dense = MembershipConfig(n=DENSE_N, **base)
     multidc = MultiDCConfig(n=N_NODES, segments=8, bridges_per_segment=5,
                             delivery="aggregate")
+    stream = {p: StreamcastConfig(
+        n=N_NODES, events=64, chunks=4, window=8, fanout=4, chunk_budget=2,
+        rate=0.1, names=16, loss=0.05, done_frac=0.999,
+        delivery="aggregate", policy=p) for p in ("uniform", "pipeline")}
+
     latency, _ = derive_wan_latency(8, 5, tick_ms=LAN.gossip_interval_ms,
                                     seed=0, rounds=400, wan_window=8,
                                     device=dev)
@@ -274,6 +288,16 @@ def main() -> int:
         ("membership_dense_16k_d8_ring",
          study(run_membership, dense, track=(42,), **ring8),
          MEMBERSHIP_WINDOW, MEMBERSHIP_WINDOW),
+        ("stream_1m_aggregate_uniform",
+         study(run_streamcast, stream["uniform"]), STREAM_STEPS,
+         MEMBERSHIP_WINDOW),
+        ("stream_1m_aggregate_pipeline",
+         study(run_streamcast, stream["pipeline"]), STREAM_STEPS,
+         MEMBERSHIP_WINDOW),
+        ("stream_1m_d8_ring",
+         study(run_streamcast, stream100k_config(N_NODES, STREAM_SHARD_STEPS,
+                                                 devices=8), **ring8),
+         STREAM_SHARD_STEPS, MEMBERSHIP_WINDOW),
     )
     for label, run, ticks, window in studies:
         print(json.dumps(profile_study(run, label, ticks, window)),

@@ -1,8 +1,8 @@
 """The study engine: tick loops over the round functions, timed on the device.
 
 The port of the broadcast, SWIM, Lifeguard, membership (dense and
-sparse, unsharded and over D logical shards), multi-DC and geo paths of
-``consul_tpu/sim/engine.py``.  Round
+sparse, unsharded and over D logical shards), multi-DC, geo and
+streamcast paths of ``consul_tpu/sim/engine.py``.  Round
 keys are counter-based as in the reference: round ``t`` draws from
 ``fold_in(scan_key, t)``, so trajectories are prefix-stable in ``steps``
 and the sharded twin stays bit-equal at D == 1.  ``lax.scan`` becomes a
@@ -56,6 +56,7 @@ from consul_tpu_torch.parallel.shard import (
     sharded_geo_scan,
     sharded_membership_scan,
     sharded_sparse_membership_scan,
+    sharded_streamcast_scan,
 )
 from consul_tpu_torch.sim.metrics import (
     BroadcastReport,
@@ -110,6 +111,41 @@ def geo_scan(state, key: torch.Tensor, cfg, steps: int):
     )
     for t in range(steps):
         state, out = geo_round(state, fold_in(key, t), cfg, consts)
+        for o, v in zip(outs, out):
+            o[t] = v
+    return state, outs
+
+
+def streamcast_outputs(cfg, steps: int, device) -> tuple:
+    """Preallocated per-tick outputs of a streamcast scan: the window
+    snapshots ``[steps, W]`` (slot_event, slot_birth, done_count) and the
+    cumulative counters ``[steps]`` (offered, delivered, quiesced,
+    window_overflow, coalesced) and ``sent``, all int32."""
+    return tuple(
+        torch.empty((steps, cfg.window) if i < 3 else (steps,),
+                    dtype=torch.int32, device=device)
+        for i in range(9)
+    )
+
+
+def streamcast_scan(state, key: torch.Tensor, cfg, steps: int):
+    """Run ``steps`` ticks of the pipelined event stream; returns
+    ``(final_state, outs)`` with ``outs`` the per-tick window snapshots
+    and counters (:func:`streamcast_outputs`).  The arrival schedule comes
+    from ``fold_in(key, _SCHED_SALT)``, round ``t`` from
+    ``fold_in(key, t)``."""
+    # Imported at call time: streamcast.model depends on sim.faults,
+    # whose package imports this module.
+    from consul_tpu_torch.streamcast.model import (
+        _SCHED_SALT,
+        arrival_arrays,
+        streamcast_round,
+    )
+
+    sched = arrival_arrays(cfg, fold_in(key, _SCHED_SALT))
+    outs = streamcast_outputs(cfg, steps, key.device)
+    for t in range(steps):
+        state, out = streamcast_round(state, fold_in(key, t), cfg, sched)
         for o, v in zip(outs, out):
             o[t] = v
     return state, outs
@@ -560,5 +596,72 @@ def run_geo(
         wasted=wasted,
         wall_s=wall,
         shard_overflow=int(outs[6][-1]) if mesh is not None else None,
+        device=_device_name(dev),
+    )
+
+
+def run_streamcast(
+    cfg,
+    steps: int,
+    seed: int = 0,
+    warmup: bool = True,
+    mesh=None,
+    exchange: str = "alltoall",
+    telemetry: bool = False,
+    policy: str = None,
+    device=None,
+):
+    """Sustained-load streamcast study (cfg: a StreamcastConfig): a
+    continuous chunked event stream under the pipelined per-round
+    transmit budget.  Returns a ``streamcast.StreamcastReport``.
+    ``policy=`` rebuilds the config with that chunk-selection policy (a
+    typo fails in the config's validation).  ``mesh=`` runs the sharded
+    twin (chunk planes over D logical shards, edges messages over the
+    outbox) and fills ``report.shard_overflow``; ``exchange`` picks its
+    transport.  Runs on CUDA unless ``device`` (or the mesh's device)
+    says otherwise; ``telemetry`` waits for a later slice and is
+    rejected."""
+    import dataclasses
+
+    from consul_tpu_torch.streamcast.model import streamcast_init
+    from consul_tpu_torch.streamcast.report import StreamcastReport
+
+    if policy is not None and policy != cfg.policy:
+        cfg = dataclasses.replace(cfg, policy=policy)
+    _check_later_slice(telemetry=(telemetry, False))
+    _check_exchange(exchange, mesh)
+    if device is None and mesh is not None:
+        device = mesh.device
+    dev = resolve_device(device)
+    if mesh is not None:
+        def scan(st, k):
+            return sharded_streamcast_scan(st, k, cfg, steps, mesh, exchange)
+    else:
+        def scan(st, k):
+            return streamcast_scan(st, k, cfg, steps)
+
+    _, outs, wall = _timed(lambda: streamcast_init(cfg, device=dev), scan,
+                           PRNGKey(seed, device=dev), dev, warmup)
+    (slot_event, slot_birth, done_count, offered, delivered, quiesced,
+     overflow, coalesced, sent) = outs[:9]
+    return StreamcastReport(
+        n=cfg.n,
+        ticks=steps,
+        tick_ms=cfg.profile.gossip_interval_ms,
+        window=cfg.window,
+        chunks=cfg.chunks,
+        k_events=cfg.k_events,
+        slot_event=slot_event,
+        slot_birth=slot_birth,
+        done_count=done_count,
+        offered=offered,
+        delivered=delivered,
+        quiesced=quiesced,
+        window_overflow=overflow,
+        coalesced=coalesced,
+        sent=sent,
+        wall_s=wall,
+        policy=cfg.policy,
+        shard_overflow=int(outs[9][-1]) if mesh is not None else None,
         device=_device_name(dev),
     )

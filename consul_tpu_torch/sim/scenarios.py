@@ -2,8 +2,13 @@
 
 The part of ``consul_tpu/sim/scenarios.py`` the port runs:
 
+  dev3        BASELINE config 1: 3-node LAN pool, one user event
   probe1k     BASELINE config 2: 1k-node full-membership SWIM, LAN,
               fanout 3, 10 concurrent crashes (1%) at tick 10
+  event100k   BASELINE config 3: 100k-node Serf event broadcast, LAN,
+              fanout 4
+  stream100k  100k-node sustained event stream: Poisson 4-chunk events
+              pipelined through an 8-slot window
   suspect1m   BASELINE config 4: 1M-node suspicion/dead propagation,
               30% loss, WAN profile, aggregate delivery
   degraded1m  1M-node Lifeguard false-positive study, WAN profile, 2%
@@ -20,7 +25,10 @@ x 5 bridges, 16 events from DC 0, a brownout to 10% over ticks [5, 120)),
 either arm, for ``run_geo``.
 
 Each returns the reference's summary dict and takes ``device=``
-(CUDA unless given).
+(CUDA unless given).  ``devices=`` lays a study over D logical shards of
+one card (``parallel/mesh.py``) and ``exchange=`` picks the outbox
+transport (``"ring"``: the CUDA ring kernel); ``telemetry=`` waits for a
+later slice and is rejected.
 """
 
 from __future__ import annotations
@@ -30,31 +38,53 @@ import dataclasses
 import numpy as np
 
 from consul_tpu_torch.models import (
+    BroadcastConfig,
     LifeguardConfig,
     MembershipConfig,
     SwimConfig,
 )
 from consul_tpu_torch.protocol import LAN, WAN
 from consul_tpu_torch.sim.engine import (
+    _check_later_slice,
+    run_broadcast,
     run_geo,
     run_lifeguard,
     run_membership,
     run_multidc,
+    run_streamcast,
     run_swim,
 )
 
 
-def probe1k(seed: int = 0, device=None) -> dict:
+def dev3(seed: int = 0, telemetry: bool = False, device=None) -> dict:
+    """BASELINE config 1: the 3-node ``agent -dev`` LAN pool, one user
+    event, exact edges delivery, 10 ticks."""
+    _check_later_slice(telemetry=(telemetry, False))
+    cfg = BroadcastConfig(n=3, profile=LAN, delivery="edges")
+    rep = run_broadcast(cfg, steps=10, seed=seed, warmup=False,
+                        device=device)
+    return {"scenario": "dev3", **rep.summary()}
+
+
+def probe1k(seed: int = 0, devices: int = None, exchange: str = "alltoall",
+            telemetry: bool = False, device=None) -> dict:
     """BASELINE config 2: 1k nodes, SWIM probe/ack, 1% induced failure: 10
     concurrent crashes in one full-membership study, interacting through
-    shared gossip bandwidth, confirmations and push/pull (300 ticks)."""
+    shared gossip bandwidth, confirmations and push/pull (300 ticks).
+    ``devices`` shards the observer rows over D logical shards (the dense
+    twin); without it a non-default ``exchange`` is rejected."""
+    from consul_tpu_torch.parallel import mesh_for
+
+    _check_later_slice(telemetry=(telemetry, False))
     failed = tuple(range(0, 1000, 100))  # 10 spread-out subjects
     cfg = MembershipConfig(
         n=1000, loss=0.0, profile=LAN, fanout=3,
         fail_at=tuple((f, 10) for f in failed),
     )
     rep = run_membership(cfg, steps=300, seed=seed, track=failed,
-                         warmup=False, device=device)
+                         warmup=False,
+                         mesh=mesh_for(devices) if devices else None,
+                         exchange=exchange, device=device)
     first_sus = [rep.first_detection_ms(i) for i in range(len(failed))]
     live = cfg.n - len(failed)
     conv = [rep.dead_converged(i, live) for i in range(len(failed))]
@@ -70,7 +100,84 @@ def probe1k(seed: int = 0, device=None) -> dict:
             [(c + 1) * rep.tick_ms for c in conv if c is not None]
         )) if any(c is not None for c in conv) else None,
         "sim_rounds_per_sec": rep.rounds_per_sec,
+        **({"devices": devices, "exchange_backend": exchange,
+            "shard_overflow": rep.overflow}
+           if devices else {}),
     }
+
+
+def event100k_config(devices: int = None, n: int = 100_000):
+    """The BroadcastConfig of :func:`event100k`: LAN, fanout 4, exact
+    edges over shards, aggregate without."""
+    return BroadcastConfig(n=n, fanout=4, profile=LAN,
+                           delivery="edges" if devices else "aggregate")
+
+
+def event100k(seed: int = 0, devices: int = None, exchange: str = "alltoall",
+              telemetry: bool = False, device=None) -> dict:
+    """BASELINE config 3: 100k-node event broadcast, LAN, fanout 4, 100
+    ticks (:func:`event100k_config`).  ``devices`` runs the exact edges
+    path over D logical shards (budget misses reported as
+    ``shard_overflow``); without it the aggregate path runs and a
+    non-default ``exchange`` is rejected."""
+    from consul_tpu_torch.parallel import mesh_for
+
+    _check_later_slice(telemetry=(telemetry, False))
+    cfg = event100k_config(devices)
+    if devices:
+        rep = run_broadcast(cfg, steps=100, seed=seed,
+                            mesh=mesh_for(devices), exchange=exchange,
+                            device=device)
+        return {"scenario": "event100k", **rep.summary(),
+                "devices": devices, "exchange_backend": exchange,
+                "shard_overflow": rep.overflow}
+    rep = run_broadcast(cfg, steps=100, seed=seed, exchange=exchange,
+                        device=device)
+    return {"scenario": "event100k", **rep.summary()}
+
+
+def stream100k_config(n: int = 100_000, steps: int = 150,
+                      devices: int = None, policy: str = "uniform"):
+    """The StreamcastConfig of :func:`stream100k`: rate 0.3 events a tick
+    with K = 1.5x the expected arrivals, 4 chunks, 8 slots, fanout 4,
+    2 slots serviced a round, 16 names, loss 0.05, LAN, done at 99.9%;
+    edges over shards, aggregate without."""
+    from consul_tpu_torch.streamcast import StreamcastConfig
+
+    rate = 0.3
+    return StreamcastConfig(
+        n=n, events=int(rate * steps * 1.5), chunks=4, window=8,
+        fanout=4, chunk_budget=2, rate=rate, names=16, loss=0.05,
+        profile=LAN, done_frac=0.999, policy=policy,
+        delivery="edges" if devices else "aggregate",
+    )
+
+
+def stream100k(seed: int = 0, n: int = 100_000, steps: int = 150,
+               devices: int = None, exchange: str = "alltoall",
+               telemetry: bool = False, policy: str = "uniform",
+               device=None) -> dict:
+    """Sustained event stream at 100k nodes (``stream100k_config``):
+    delivered events/s against the offered load, t50/t99 delivery
+    quantiles and the window-overflow saturation signal.  ``devices``
+    shards the chunk planes over D logical shards (edges messages over
+    the outbox, three columns); ``exchange`` picks the transport.
+    ``n``/``steps`` scale down for CPU runs."""
+    from consul_tpu_torch.parallel import mesh_for
+
+    _check_later_slice(telemetry=(telemetry, False))
+    cfg = stream100k_config(n, steps, devices, policy)
+    rep = run_streamcast(cfg, steps=steps, seed=seed, warmup=False,
+                         mesh=mesh_for(devices) if devices else None,
+                         exchange=exchange, device=device)
+    return {
+        "scenario": "stream100k",
+        **rep.summary(),
+        **({"devices": devices, "exchange_backend": exchange}
+           if devices else {}),
+    }
+
+
 from consul_tpu_torch.sim.faults import (
     BandwidthSchedule,
     DegradedSet,

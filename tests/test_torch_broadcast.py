@@ -10,6 +10,11 @@ by ``consul_tpu_torch.convert``) and the same key, at
   thresholds by the rule of ``torch_parity.check_arrivals``; a receiver
   may differ only where its uniform lies between the two thresholds,
   and the test reports how many did.
+
+The alive-masked round (``broadcast_round(alive=)``, the alive-pool
+target draw ``sample_alive_peers`` and ``aggregate_arrivals(alive=)``)
+is held to the reference's own case (``tests/test_broadcast.py``: n=64,
+nodes 10..39 dead, 40 rounds) at both deliveries, tick by tick.
 """
 
 import functools
@@ -26,6 +31,9 @@ from consul_tpu.models.swim import SwimConfig as JSwimConfig
 from consul_tpu.models.swim import swim_init as j_swim_init
 from consul_tpu.models.swim import swim_round as j_swim_round
 from consul_tpu.ops.sampling import owned_uniform as j_owned_uniform
+from consul_tpu.ops.sampling import (
+    sample_alive_peers_owned as j_sample_alive_peers_owned,
+)
 from consul_tpu.parallel import make_mesh as j_make_mesh
 from consul_tpu.parallel.shard import (
     sharded_broadcast_scan as j_sharded_scan,
@@ -43,7 +51,14 @@ from consul_tpu_torch.models import (
     SwimState,
     broadcast_round,
 )
-from consul_tpu_torch.ops import arrival_rate, fold_in, owned_uniform, split
+from consul_tpu_torch.ops import (
+    arrival_rate,
+    fold_in,
+    owned_uniform,
+    sample_alive_peers,
+    sample_alive_peers_owned,
+    split,
+)
 from consul_tpu_torch.parallel import block_size, make_mesh, mesh_for
 from consul_tpu_torch.parallel import sharded_broadcast_scan
 from consul_tpu_torch.sim import broadcast_scan, run_broadcast
@@ -269,3 +284,100 @@ def test_state_round_trip(state_cls):
         assert back.subject_inc.shape == ()
     else:
         assert back.knows.dtype == np.bool_ and back.tx_left.dtype == np.int32
+
+
+@pytest.mark.parametrize("dead_frac", [0.0, 0.3, 0.97, 1.0])
+def test_sample_alive_peers_matches_jax(dead_frac):
+    """Owned alive-pool draws over random masks, including the one-alive
+    and none-alive edges (the tensor bound ``max(A - 1, 1)``)."""
+    rng = np.random.default_rng(int(dead_frac * 100))
+    draw = jax.jit(j_sample_alive_peers_owned, static_argnums=3)
+    for s in range(4):
+        n = 257
+        alive = rng.random(n) >= dead_frac
+        ids = rng.choice(n, size=64, replace=False).astype(np.int32)
+        key = jax.random.PRNGKey(s)
+        want = np.asarray(draw(key, ids, alive, 3))
+        got = sample_alive_peers_owned(
+            key_from_numpy(np.asarray(key)), torch.from_numpy(ids),
+            torch.from_numpy(alive), 3)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(want, got.numpy())
+        full = sample_alive_peers(key_from_numpy(np.asarray(key)),
+                                  torch.from_numpy(alive), 3)
+        np.testing.assert_array_equal(full.numpy()[ids], want)
+        if 1 < alive.sum() < n:
+            live = np.nonzero(alive)[0]
+            assert np.isin(want[alive[ids]], live).all()
+
+
+ALIVE_N, ALIVE_FANOUT, ALIVE_STEPS = 64, 3, 40
+
+
+def _alive_mask():
+    alive = np.ones(ALIVE_N, bool)
+    alive[10:40] = False
+    return alive
+
+
+@pytest.mark.parametrize("delivery", DELIVERIES)
+def test_broadcast_round_alive_matches_jax(delivery, record_property):
+    """The reference's own case, both deliveries, tick by tick from the
+    JAX state; aggregate by the arrival-threshold rule."""
+    jcfg = JConfig(n=ALIVE_N, fanout=ALIVE_FANOUT, delivery=delivery)
+    cfg = BroadcastConfig(n=ALIVE_N, fanout=ALIVE_FANOUT, delivery=delivery)
+    alive = _alive_mask()
+    alive_t = torch.from_numpy(alive)
+    step = jax.jit(j_round, static_argnums=(2,))
+    key = jax.random.PRNGKey(5)
+    state = _np(j_init(jcfg))
+    near = 0
+    for t in range(ALIVE_STEPS):
+        k = jax.random.fold_in(key, t)
+        nxt = _np(step(state, k, jcfg, alive))
+        got = state_to_numpy(broadcast_round(
+            state_from_numpy(state), key_from_numpy(np.asarray(k)), cfg,
+            alive_t))
+        skip = None
+        if delivery == "aggregate":
+            senders = state.knows & (state.tx_left > 0) & alive
+            lam = ((np.float32(senders.sum()) - senders.astype(np.float32))
+                   * np.float32(ALIVE_FANOUT) * np.float32(1.0)
+                   / np.float32(alive.sum() - 1))
+            u_j = np.asarray(j_owned_uniform(
+                jax.random.split(k)[1], np.arange(ALIVE_N, dtype=np.int32)))
+            thr_j = np.asarray(-jax.numpy.expm1(-jax.numpy.asarray(lam)))
+            u_t = owned_uniform(split(key_from_numpy(np.asarray(k)))[1],
+                                torch.arange(ALIVE_N, dtype=torch.int32))
+            thr_t = (-torch.expm1(-torch.from_numpy(lam))).numpy()
+            got_j, got_t = u_j < thr_j, u_t.numpy() < thr_t
+            near += check_arrivals(u_j, u_t.numpy(), thr_j, thr_t, lam,
+                                   got_j, got_t)
+            skip = got_j != got_t
+        _assert_state_equal(nxt, got, skip=skip, msg=f"tick {t}")
+        state = nxt
+    record_property("near_threshold_nodes", near)
+    assert not state.knows[10:40].any(), "dead nodes never learn the event"
+    assert state.knows[np.r_[0:10, 40:64]].all(), "live nodes converge"
+
+
+def test_aggregate_arrivals_alive_rate():
+    """The alive form's rate spreads the copies over the other A-1 alive
+    nodes, in float32: the port's threshold within 1 ulp of float64."""
+    from consul_tpu.ops.sampling import aggregate_arrivals as j_agg
+    from consul_tpu_torch.ops import aggregate_arrivals
+
+    rng = np.random.default_rng(3)
+    for s in range(5):
+        alive = rng.random(500) < 0.7
+        senders = (rng.random(500) < 0.2) & alive
+        key = jax.random.PRNGKey(s)
+        want = np.asarray(jax.jit(j_agg, static_argnums=(2, 3, 4))(
+            key, senders, 4, 0.1, 500, alive))
+        got = aggregate_arrivals(key_from_numpy(np.asarray(key)),
+                                 torch.from_numpy(senders), 4, 0.1, 500,
+                                 torch.from_numpy(alive)).numpy()
+        assert not got[~alive].any()
+        # Differences only where the thresholds disagree: none at these
+        # seeds.
+        np.testing.assert_array_equal(want, got)

@@ -27,6 +27,9 @@ MODULES = (
     "consul_tpu_torch.parallel", "consul_tpu_torch.protocol",
     "consul_tpu_torch.sim", "consul_tpu_torch.sim.faults",
     "consul_tpu_torch.sim.scenarios", "consul_tpu_torch.sim.breakdown",
+    "consul_tpu_torch.sim.load", "consul_tpu_torch.streamcast",
+    "consul_tpu_torch.streamcast.model", "consul_tpu_torch.streamcast.window",
+    "consul_tpu_torch.streamcast.report",
     "chip_smoke",
 )
 

@@ -1,6 +1,22 @@
 """Shared comparison rules of the port's parity tests (tests/test_torch_*.py)."""
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's PyTorch side on one intra-op thread, then restore the
+    count, which the fixture yields.  Under ``pytest -n 6`` every worker's
+    OpenMP pool would otherwise spin 8 threads on 8 cores, and the many
+    small tensor ops of a streamcast tick slow down tenfold.  A module
+    that uses it checks its parity at one thread; a test that needs the
+    default count sets it back for its own run."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield threads
+    torch.set_num_threads(threads)
 
 
 def ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
