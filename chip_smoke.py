@@ -87,13 +87,28 @@ Run from the root of the repository.  Phases, each fatal on failure:
      150 ticks) for each policy with the accounting identity and events
      delivered; the reference's own 1M study (``tests/test_streamcast.py``:
      4-chunk events, 8 slots, rate 0.1, aggregate, 100 ticks) for the
-     uniform and pipeline policies; bench.py's sustained-load curve at 1M
-     (the paced stream, W=7, budget 4, rates 0.1 / 0.3 / 0.6 / 1.2, 150
-     ticks) for each policy, with its knee printed; and CUDA held against
+     uniform and pipeline policies; and CUDA held against
      the CPU at n=4096 on every tick (streamcast edges and aggregate for
      each policy, the paced stream with a backlog, a hotspot and heavy
      tails, a loss ramp, the sharded twin at D=8 with both transports,
      and ``broadcast_round(alive=)`` at both deliveries).
+ 10. the sweep plane (``consul_tpu_torch.sweep``, ``run_sweep``): U = 1
+     equal to the plain scan at n=4096 for swim, lifeguard (every fault
+     primitive), broadcast, streamcast and geo, every output and the
+     final state; each preset's knobs varying at small n (U = 4 to 6, and
+     the faultmatrix preset itself, 27 x 192) run on the card and on the
+     CPU with equal outputs and final states; ``seeds4k`` (U = 256, n =
+     4096, 60 ticks) with universes/s, rounds/s, the first-suspicion mean
+     and p95 (every universe detecting) and the card's kernel launches
+     and busy share a tick at U = 256 against U = 1 (``torch.profiler``);
+     ``tuning`` (16 x 1024) with its (false_dead_mean, detect_t90_ms)
+     frontier; ``faultmatrix``; ``wanbrownout`` (4 rungs x 2048, 160
+     ticks) with the accounting identity in every universe; ``streamadv``
+     (uniform, 4096); and bench.py's 1M sustained-load curve in its swept
+     form (the paced stream, W=7, E=4, fanout 4, budget 4, done_frac 0.99,
+     rates 0.1 / 0.3 / 0.6 / 1.2 as one U = 4 sweep of 150 ticks per
+     policy) with its points, knee, rounds/s, device ms a tick and peak
+     memory.
 
 The next-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -102,6 +117,7 @@ where CUDA is not available or the port is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -154,12 +170,17 @@ STREAM_1M_SHARD_STEPS = 60
 STREAM_REF_1M_STEPS = 100  # tests/test_streamcast.py:966-992
 EVENT_STEPS = 100          # event100k's depth
 # bench.py's sustained-load curve (_streaming_curve, _STREAM_WORK): the
-# paced stream at n=1M, one run per offered load and policy.
+# paced stream at n=1M, one U = 4 sweep per policy (phase 10).
 CURVE_RATES = (0.1, 0.3, 0.6, 1.2)
 CURVE_STEPS = 150
 CURVE_WORK = dict(window=7, chunks=4, fanout=4, chunk_budget=4,
                   done_frac=0.99)
 STREAM_PARITY_STEPS = 30
+# The knees of the per-rate 1M curve (PR 6's phase 9: one run_streamcast
+# per rate and policy), printed beside the swept curve's.
+PER_RATE_KNEES = {"uniform": 0.3, "pipeline": 0.6, "rarest": 0.6}
+SWEEP_PARITY_N = 512
+SWEEP_PROFILE_TICKS = 5
 
 # derive_wan_latency(8, B, tick_ms=200, seed=0, rounds=R, wan_window=8)
 # as computed with jax 0.9.0 on the CPU: (matrix, rel_rtt_error).
@@ -490,8 +511,6 @@ def phase_swim(dev, card: str) -> None:
 
 def phase_lifeguard(dev, card: str) -> None:
     """degraded1m's environment at 1M nodes, Lifeguard on then off."""
-    import dataclasses
-
     from consul_tpu_torch import LifeguardConfig, run_lifeguard
     from consul_tpu_torch.protocol import WAN
     from consul_tpu_torch.sim.scenarios import degraded1m_environment
@@ -861,8 +880,6 @@ def _parity_run(tag, init, rnd, consts, cfg, dev, steps: int, seed: int,
 
 def phase_membership_parity(dev) -> None:
     """Every membership round on the card against the CPU."""
-    import dataclasses
-
     from consul_tpu_torch import MembershipConfig, SparseMembershipConfig
     from consul_tpu_torch.models import (
         membership_init,
@@ -1104,8 +1121,6 @@ def _step_parity(tag, state, step, dev, steps: int, seed: int) -> None:
 
 def phase_geo_parity(dev, latency) -> None:
     """The geo slice's rounds on the card against the CPU."""
-    import dataclasses
-
     from consul_tpu_torch.geo.latency import dc_placement
     from consul_tpu_torch.geo.model import geo_constants, geo_init, geo_round
     from consul_tpu_torch.models import (
@@ -1453,8 +1468,9 @@ def stream_line(tag: str, card: str, rep, **extra) -> None:
 
 
 def phase_stream_presets(dev, card: str) -> None:
-    """stream100k (aggregate) per policy, the reference's own 1M config,
-    and bench.py's sustained-load curve at 1M per policy with its knee."""
+    """stream100k (aggregate) per policy and the reference's own 1M
+    config.  bench.py's sustained-load curve at 1M runs in its swept form
+    in phase 10."""
     import torch
 
     from consul_tpu_torch import StreamcastConfig, run_streamcast
@@ -1484,28 +1500,6 @@ def phase_stream_presets(dev, card: str) -> None:
         stream_line(f"stream_1m_{policy}", card, rep, in_flight=flight,
                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
-    t0 = time.perf_counter()
-    knees = {}
-    for policy in POLICIES:
-        knee = None
-        for rate in CURVE_RATES:
-            cfg = StreamcastConfig(
-                n=N_1M, events=int(max(CURVE_RATES) * CURVE_STEPS * 1.5),
-                rate=rate, loss=0.05, delivery="aggregate", policy=policy,
-                arrivals="paced", **CURVE_WORK)
-            rep = run_streamcast(cfg, CURVE_STEPS, seed=0, warmup=False,
-                                 device=dev)
-            s = rep.summary()
-            check_stream_summary(s, cfg.window, f"curve {policy} {rate}",
-                                 delivers=False)
-            if knee is None and s["window_overflow"] > 0:
-                knee = rate
-            stream_line(f"curve_1m_{policy}_rate{rate}", card, rep,
-                        offered_events_per_sim_s=s[
-                            "offered_events_per_sim_s"])
-        knees[policy] = knee
-    log(f"curve knees (first rate with window overflow) {json.dumps(knees)}"
-        f" in {time.perf_counter() - t0:.1f} s")
 
 
 def _same_outputs(a, b) -> bool:
@@ -1810,6 +1804,279 @@ def phase_stream_parity(dev) -> None:
                if delivery == "aggregate" else ""))
 
 
+def _sweep_leaves(tree) -> list:
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree.cpu()]
+    return [x.cpu() for x in tree]
+
+
+def _leaves_equal(want: list, got: list) -> str:
+    """'' where two lists of CPU tensors agree leaf for leaf, dtype
+    included, else the index of the first that differs."""
+    if len(want) != len(got):
+        return "leaf count"
+    for i, (x, y) in enumerate(zip(want, got)):
+        if (x.dtype != y.dtype or x.shape != y.shape
+                or not np.array_equal(x.numpy(), y.numpy())):
+            return f"leaf {i}"
+    return ""
+
+
+def _profile_ticks(run, ticks: int) -> dict:
+    """Kernel launches and kernel time a tick that ``torch.profiler`` sees
+    in ``run()`` (copies and fills aside), and the share of the run's
+    wall time the card was busy."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    launches = sum(e.count for e in cuda)
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in cuda)
+    return {"launches_per_tick": launches / ticks,
+            "device_ms_per_tick": dev_us / 1000.0 / ticks,
+            "busy_share": dev_us / 1e6 / wall if wall > 0 else None,
+            "kernels": {e.key: e.count for e in cuda}}
+
+
+def phase_sweep(dev, card: str) -> None:
+    """The sweep plane: U = 1 equals the plain scan; the card equals the
+    CPU with each preset's knobs varying; the presets at their sizes; the
+    1M sustained-load curve in its swept form."""
+    import torch
+
+    from consul_tpu_torch import (
+        BroadcastConfig,
+        GeoConfig,
+        LifeguardConfig,
+        StreamcastConfig,
+        SwimConfig,
+    )
+    from consul_tpu_torch.ops import PRNGKey
+    from consul_tpu_torch.sim import (
+        DegradedSet,
+        FaultSchedule,
+        LossRamp,
+        Partition,
+        engine,
+        run_sweep,
+    )
+    from consul_tpu_torch.streamcast import POLICIES
+    from consul_tpu_torch.sweep import (
+        Universe,
+        make_preset,
+        make_sweep,
+        presets,
+        stacked_init,
+        stream_points,
+    )
+
+    t_phase = time.perf_counter()
+    faults = FaultSchedule(
+        ramps=(LossRamp(((10, 0.2), (30, 0.0))),),
+        degraded=(DegradedSet(frac=0.1, drop=0.4, late=0.2, seed=2),),
+        partitions=(Partition(start=15, heal=35, severity=0.6),))
+    plain = {
+        "swim": (SwimConfig(n=SMALL_N, subject=7, loss=0.05), 20,
+                 engine.swim_scan),
+        "lifeguard": (LifeguardConfig(n=SMALL_N, subject=7, loss=0.1,
+                                      subject_alive=True, ack_late=0.05,
+                                      faults=faults), 20,
+                      engine.lifeguard_scan),
+        "broadcast": (BroadcastConfig(n=SMALL_N, fanout=3, loss=0.05), 20,
+                      engine.broadcast_scan),
+        "streamcast": (StreamcastConfig(
+            n=SMALL_N, events=40, chunks=4, window=8, fanout=4,
+            chunk_budget=2, rate=0.3, loss=0.05, delivery="aggregate",
+            policy="pipeline"), 20, engine.streamcast_scan),
+        "geo": (GeoConfig(n=SMALL_N, segments=8, bridges_per_segment=3,
+                          events=8), 20, engine.geo_scan),
+    }
+    for entrypoint, (cfg, steps, scan) in plain.items():
+        uni = Universe(entrypoint=entrypoint, cfg=cfg, steps=steps,
+                       seeds=(0,))
+        init = stacked_init(uni, dev)
+        s_final, s_outs = make_sweep(entrypoint, 1)(
+            init, uni.keys(dev), (), cfg, steps)
+        p_final, p_outs = scan(type(init)(*(x[0].clone() for x in init)),
+                               PRNGKey(0, device=dev), cfg, steps)
+        diff = _leaves_equal([x[0] for x in _sweep_leaves(s_outs)],
+                             _sweep_leaves(p_outs))
+        check(not diff, f"sweep {entrypoint} U=1 outputs != plain: {diff}")
+        diff = _leaves_equal([x[0] for x in _sweep_leaves(s_final)],
+                             _sweep_leaves(p_final))
+        check(not diff, f"sweep {entrypoint} U=1 state != plain: {diff}")
+        log(f"sweep {entrypoint}: U=1 == plain scan, every output and the "
+            f"final state, {steps} ticks at n={SMALL_N}")
+
+    log(f"sweep U=1 == plain in {time.perf_counter() - t_phase:.1f} s")
+    t_part = time.perf_counter()
+    small = SWEEP_PARITY_N
+    # One Vivaldi derivation on the card (300 rounds) for both sizes: the
+    # latencies depend on the segments and the seed, not on n.
+    brownout = presets.wan_brownout(device=dev)
+    cases = {
+        "seeds4k": presets.seed_sweep(universes=6, n=small, steps=30),
+        "tuning": presets.tuning_grid(n=small, fanouts=(2, 4),
+                                      scales=(0.15, 1.5), fail_at=20,
+                                      steps=40),
+        "faultmatrix": presets.fault_matrix(steps=30),
+        "streamadv": presets.stream_adversarial_ladder(n=small, steps=30),
+        "wanbrownout": dataclasses.replace(
+            brownout, cfg=dataclasses.replace(brownout.cfg, n=small),
+            steps=40),
+    }
+    # The policies' rounds are held card == CPU in phase 9; here the
+    # swept rate on the paced (uniform) and Poisson edges streams.
+    cases["streamload_uniform"] = presets.stream_load_curve(
+        n=small, steps=30, rates=CURVE_RATES, policy="uniform",
+        arrivals="paced", **CURVE_WORK)
+    edges = presets.stream_load_curve(n=small, steps=30, policy="pipeline")
+    cases["streamload_edges"] = Universe(
+        entrypoint="streamcast", cfg=StreamcastConfig(**{
+            **{f: getattr(edges.cfg, f) for f in (
+                "n", "events", "chunks", "window", "fanout", "chunk_budget",
+                "rate", "loss", "policy", "done_frac")},
+            "delivery": "edges"}),
+        steps=edges.steps, seeds=edges.seeds, knobs=edges.knobs,
+        values=edges.values)
+    for tag, uni in cases.items():
+        got = []
+        for where in (dev, torch.device("cpu")):
+            final, outs = make_sweep(uni.entrypoint, uni.U)(
+                stacked_init(uni, where), uni.keys(where),
+                uni.knob_arrays(where), uni.cfg, uni.steps, uni.knobs)
+            got.append((_sweep_leaves(outs), _sweep_leaves(final)))
+        diff = _leaves_equal(got[1][0], got[0][0])
+        check(not diff, f"sweep {tag}: card outputs != CPU: {diff}")
+        diff = _leaves_equal(got[1][1], got[0][1])
+        check(not diff, f"sweep {tag}: card state != CPU: {diff}")
+        log(f"sweep {tag}: card == CPU, every output and the final state, "
+            f"U={uni.U} knobs={list(uni.knobs)} {uni.steps} ticks at "
+            f"n={uni.cfg.n}")
+    log(f"sweep card == CPU in {time.perf_counter() - t_part:.1f} s")
+
+    def sweep_line(tag: str, rep, **extra) -> None:
+        s = rep.summary()
+        log("sweep " + json.dumps({
+            "run": tag, "universes": rep.U, "n": rep.n, "ticks": rep.steps,
+            "wall_s": rep.wall_s, "universes_per_sec": rep.universes_per_sec,
+            "rounds_per_sec": rep.rounds_per_sec, **extra,
+            "metrics": s["metrics"], "device": rep.device, "card": card}))
+
+    # seeds4k: the reference's acceptance sweep, and the launches a tick.
+    t_part = time.perf_counter()
+    uni = make_preset("seeds4k")
+    rep = run_sweep(uni, warmup=True, device=dev)
+    first = rep.metrics["first_suspect_ms"]
+    check(not np.isnan(first).any(),
+          f"seeds4k: {int(np.isnan(first).sum())} universes never detected")
+    prof = {}
+    for U in (1, uni.U):
+        short = Universe(entrypoint="swim", cfg=uni.cfg,
+                         steps=SWEEP_PROFILE_TICKS, split_from=0,
+                         universes=U)
+        state, keys = stacked_init(short, dev), short.keys(dev)
+        sweep = make_sweep("swim", U)
+        sweep(stacked_init(short, dev), keys, (), short.cfg, short.steps)
+        prof[U] = _profile_ticks(
+            lambda: sweep(state, keys, (), short.cfg, short.steps),
+            SWEEP_PROFILE_TICKS)
+    # A loop over universes would multiply the launches by U; the
+    # profiler's count of a 5-tick window has varied between calls by up
+    # to 2 launches a tick of 3,080, so the bound is 1%.
+    kernels = [prof[U].pop("kernels") for U in (1, uni.U)]
+    moved = {name[:60]: (kernels[0].get(name, 0), kernels[1].get(name, 0))
+             for name in set(kernels[0]) | set(kernels[1])
+             if kernels[0].get(name, 0) != kernels[1].get(name, 0)}
+    log(f"seeds4k kernels whose count differs at U=1 / U={uni.U}: "
+        f"{json.dumps(moved)}")
+    check(prof[uni.U]["launches_per_tick"]
+          <= 1.01 * prof[1]["launches_per_tick"],
+          f"seeds4k launches a tick grow with U: {prof}")
+    sweep_line("seeds4k", rep,
+               first_suspect_ms_mean=float(np.mean(first)),
+               first_suspect_ms_p95=float(np.percentile(first, 95)),
+               profile_u1=prof[1], profile_u256=prof[uni.U])
+
+    rep = run_sweep(make_preset("tuning"), warmup=False, device=dev)
+    front = rep.frontier("false_dead_mean", "detect_t90_ms")
+    check(len(front) > 0, "tuning: empty frontier")
+    sweep_line("tuning", rep, frontier=front)
+
+    rep = run_sweep(make_preset("faultmatrix"), warmup=False, device=dev)
+    check(len(np.unique(rep.metrics["fp_total"])) > 1,
+          "faultmatrix: every rung gave the same false positives")
+    sweep_line("faultmatrix", rep)
+
+    rep = run_sweep(brownout, warmup=False, device=dev)
+    ok = rep.accounting_ok()
+    check(bool(ok.all()), f"wanbrownout: accounting identity broken {ok}")
+    sweep_line("wanbrownout", rep, accounting_ok=ok.tolist(),
+               t99_ms=rep.metrics["t99_ms"].tolist(),
+               wan_admitted_bytes=rep.metrics["wan_admitted_bytes"].tolist())
+
+    uni = make_preset("streamadv")
+    rep = run_sweep(uni, warmup=False, device=dev)
+    for u in range(uni.U):
+        check_stream_summary({k: rep.metrics[k][u] for k in (
+            "events_offered", "events_delivered", "events_quiesced",
+            "window_overflow", "events_coalesced")}, uni.cfg.window,
+            f"streamadv rung {u}", delivers=False)
+    sweep_line("streamadv_uniform", rep)
+    log(f"sweep presets in {time.perf_counter() - t_part:.1f} s")
+
+    # bench.py's 1M sustained-load curve: one U = 4 sweep per policy.
+    t_curve = time.perf_counter()
+    knees = {}
+    for policy in POLICIES:
+        uni = presets.stream_load_curve(
+            n=N_1M, rates=CURVE_RATES, steps=CURVE_STEPS, policy=policy,
+            arrivals="paced", **CURVE_WORK)
+        torch.cuda.reset_peak_memory_stats()
+        rep = run_sweep(uni, warmup=False, device=dev)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for u in range(uni.U):
+            check_stream_summary({k: rep.metrics[k][u] for k in (
+                "events_offered", "events_delivered", "events_quiesced",
+                "window_overflow", "events_coalesced")}, uni.cfg.window,
+                f"curve {policy} rate {CURVE_RATES[u]}", delivers=False)
+        points, knee = stream_points(rep, CURVE_RATES)
+        knees[policy] = knee
+        short = dataclasses.replace(uni, steps=1)
+        state, keys = stacked_init(short, dev), short.keys(dev)
+        vals = short.knob_arrays(dev)
+        sweep = make_sweep("streamcast", uni.U)
+        prof = _profile_ticks(lambda: sweep(state, keys, vals, short.cfg,
+                                            short.steps, short.knobs),
+                              short.steps)
+        prof.pop("kernels")
+        log("sweep " + json.dumps({
+            "run": f"curve_1m_{policy}", "universes": rep.U, "n": rep.n,
+            "ticks": rep.steps, "wall_s": rep.wall_s,
+            "rounds_per_sec": rep.rounds_per_sec,
+            "wall_ms_per_tick": 1000.0 * rep.wall_s / rep.steps,
+            "profile": prof, "peak_gib": peak, "knee_rate": knee,
+            "per_rate_knee": PER_RATE_KNEES[policy], "points": points,
+            "device": rep.device, "card": card}))
+    log(f"curve knees swept {json.dumps(knees)} per-rate "
+        f"{json.dumps(PER_RATE_KNEES)} in "
+        f"{time.perf_counter() - t_curve:.1f} s")
+    log(f"sweep phase passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1849,6 +2116,7 @@ def main() -> int:
     phase_stream_presets(dev, card)
     phase_stream_parity(dev)
     log(f"streamcast phase passed in {time.perf_counter() - t9:.1f} s")
+    phase_sweep(dev, card)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     # Every ring path with the launches of the study that drives it; the

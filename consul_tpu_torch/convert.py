@@ -2,8 +2,10 @@
 
 The parity tests start both packages from the same state: the JAX
 state's leaves go through ``np.asarray`` and :func:`state_from_numpy`,
-and a ``uint32[2]`` jax key through :func:`key_from_numpy`.  Nothing here
-imports JAX; the arrays are plain numpy.
+and a ``uint32[2]`` jax key through :func:`key_from_numpy`.  A sweep's
+stacked keys, knob rows and ``[U, ...]`` state go through
+:func:`universe_from_numpy`.  Nothing here imports JAX; the arrays are
+plain numpy.
 """
 
 from __future__ import annotations
@@ -60,3 +62,31 @@ def state_from_numpy(state, device="cpu", state_cls=None):
 def state_to_numpy(state):
     """The port's state NamedTuple with numpy leaves (same class)."""
     return type(state)(*(t.detach().cpu().numpy() for t in state))
+
+
+def knobs_from_numpy(knobs: tuple, values, device="cpu") -> tuple:
+    """A reference sweep's ``[U]`` knob arrays (one per path of ``knobs``)
+    as the port's tensors, at the port's knob dtypes (int32 or float32,
+    the reference's)."""
+    from consul_tpu_torch.sweep.universe import knob_dtype
+
+    out = []
+    for path, v in zip(knobs, values):
+        a = np.asarray(v)
+        if a.ndim != 1:
+            raise ValueError(f"knob {path!r}: expected [U], got {a.shape}")
+        out.append(torch.from_numpy(a.astype(np.float32 if knob_dtype(path)
+                                             == torch.float32 else np.int32))
+                   .to(device))
+    return tuple(out)
+
+
+def universe_from_numpy(keys, knobs: tuple, values, stacked_state,
+                        device="cpu"):
+    """``(keys, values, state)`` of a reference sweep as the port's: the
+    ``uint32[U, 2]`` keys, one ``[U]`` array per knob path and the
+    stacked ``[U, ...]`` state (numpy leaves), so that both packages'
+    sweeps start from the same point."""
+    return (key_from_numpy(keys, device),
+            knobs_from_numpy(knobs, values, device),
+            state_from_numpy(stacked_state, device))

@@ -26,6 +26,11 @@ The link plane (beliefs, offers, admission, ring, controller) is
 S²-scale and shared with the sharded twin (``parallel/shard.py``), which
 differs only in how the delivery slots reach their receivers.
 
+A sweep runs U universes at once: a leading universe axis on every
+state plane (``knows`` ``[U, n, E]``, ``ring`` ``[U, L, S*S, E]``, ...,
+``tick`` ``[U]``), with ``loss_lan``, ``loss_wan``, ``ae_gain`` and the
+fault severities as ``[U]`` knobs.
+
 Bit-equal to the reference on the CPU, every output and every state
 field, except that a LAN receiver may differ where its uniform lies
 between the reference's ``-expm1(-lam)`` (XLA's, up to 5 ulps off) and
@@ -50,6 +55,7 @@ from consul_tpu_torch.ops import (
     split,
     xla_math,
 )
+from consul_tpu_torch.ops.knobs import is_knob, lift
 from consul_tpu_torch.protocol import LAN, WAN, GossipProfile, retransmit_limit
 from consul_tpu_torch.sim.faults import (
     FaultSchedule,
@@ -285,22 +291,23 @@ def geo_init(cfg: GeoConfig, device=None) -> GeoState:
 
 
 def _cumsum(x: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(x, dim=1, dtype=torch.int32)
+    return torch.cumsum(x, dim=-1, dtype=torch.int32)
 
 
 def admit_link_units(counts: torch.Tensor, cap_units: torch.Tensor,
                      queue_units: int):
     """Admit a per-link unit stream against per-link capacity.
 
-    ``counts`` int32[S2, M]: units offered per (link, stream position) in
-    priority order (deferred queue, fresh anti-entropy, fresh gossip);
-    ``cap_units`` int32[S2].  Each link admits greedily up to its
-    capacity, leftovers defer greedily up to ``queue_units``, the rest
-    overflows.  Returns ``(admitted, deferred, overflow)``, int32[S2, M],
-    with ``counts == admitted + deferred + overflow``."""
+    ``counts`` int32[..., S2, M]: units offered per (link, stream
+    position) in priority order (deferred queue, fresh anti-entropy,
+    fresh gossip); ``cap_units`` int32[..., S2].  Each link admits
+    greedily up to its capacity, leftovers defer greedily up to
+    ``queue_units``, the rest overflows.  Returns ``(admitted, deferred,
+    overflow)``, int32[..., S2, M], with ``counts == admitted + deferred +
+    overflow``."""
     prior = _cumsum(counts) - counts
     admitted = torch.minimum(
-        torch.clamp(cap_units[:, None] - prior, min=0), counts)
+        torch.clamp(cap_units[..., None] - prior, min=0), counts)
     left = counts - admitted
     prior_l = _cumsum(left) - left
     deferred = torch.minimum(torch.clamp(queue_units - prior_l, min=0), left)
@@ -308,11 +315,15 @@ def admit_link_units(counts: torch.Tensor, cap_units: torch.Tensor,
 
 
 def _p_wan(cfg: GeoConfig, tick: torch.Tensor) -> torch.Tensor:
-    """float32 per-unit WAN delivery survival this tick: ``1 - loss_wan``
-    in float32, times any scheduled loss ramps."""
-    base = device_scalar(
-        float(np.float32(1.0) - np.float32(cfg.loss_wan)), torch.float32,
-        tick.device)
+    """float32 per-unit WAN delivery survival this tick (``[*B]``): ``1 -
+    loss_wan`` in float32, times any scheduled loss ramps."""
+    if is_knob(cfg.loss_wan):
+        base = 1.0 - cfg.loss_wan.to(device=tick.device,
+                                     dtype=torch.float32)
+    else:
+        base = device_scalar(
+            float(np.float32(1.0) - np.float32(cfg.loss_wan)),
+            torch.float32, tick.device)
     if cfg.faults.ramps:
         return base * (1.0 - extra_loss_at(cfg.faults, tick))
     return base
@@ -320,31 +331,39 @@ def _p_wan(cfg: GeoConfig, tick: torch.Tensor) -> torch.Tensor:
 
 def expand_delivery_slots(arriving: torch.Tensor, cap_units: int):
     """Unpack per-(link, event) unit counts into the delivery slot plane:
-    ``(ev_slot, valid)`` each [S2, cap_units], slot j of a link carrying
-    the event whose cumulative count interval covers j."""
+    ``(ev_slot, valid)`` each [..., S2, cap_units], slot j of a link
+    carrying the event whose cumulative count interval covers j."""
     ends = _cumsum(arriving)                                  # [S2, E]
     j = torch.arange(cap_units, dtype=torch.int32, device=arriving.device)
-    ev_slot = torch.sum(ends[:, None, :] <= j[None, :, None], dim=2,
+    ev_slot = torch.sum(ends[..., :, None, :] <= j[:, None], dim=-1,
                         dtype=torch.int32)                    # [S2, U]
-    valid = j[None, :] < ends[:, -1:]
+    valid = j < ends[..., -1:]
     return ev_slot, valid
 
 
 def lan_arrivals(knows: torch.Tensor, tx_lan: torch.Tensor,
-                 ids: torch.Tensor, key: torch.Tensor, cfg: GeoConfig):
+                 ids: torch.Tensor, key: torch.Tensor, cfg: GeoConfig,
+                 nb: int = 0):
     """LAN gossip, receiver-side Poissonized per (segment, event), over
-    rows ``[m, E]`` of whole segments whose global ids are ``ids``.
-    Returns ``(senders, got_lan)``."""
+    rows ``[..., m, E]`` of whole segments whose global ids are ``ids``
+    (``nb`` universe axes first).  Returns ``(senders, got_lan)``."""
     ss, E = cfg.seg_size, cfg.events
     dev = knows.device
+    lead = knows.shape[:nb]
     senders = knows & (tx_lan > 0)
-    per_seg = torch.sum(senders.view(-1, ss, E), dim=1,
+    per_seg = torch.sum(senders.view(*lead, -1, ss, E), dim=-2,
                         dtype=torch.int32).to(torch.float32)
-    own = senders.view(-1, ss, E).to(torch.float32)
-    lam = (per_seg[:, None, :] - own) * device_scalar(
+    own = senders.view(*lead, -1, ss, E).to(torch.float32)
+    lam = (per_seg[..., None, :] - own) * device_scalar(
         cfg.fanout_lan, torch.float32, dev)
-    keep = float(np.float32(1.0) - np.float32(cfg.loss_lan))
-    lam = lam * device_scalar(keep, torch.float32, dev)
+    if is_knob(cfg.loss_lan):
+        loss_lan = cfg.loss_lan.to(device=dev, dtype=torch.float32)
+        keep = lift(1.0 - loss_lan, 3)
+    else:
+        keep = device_scalar(
+            float(np.float32(1.0) - np.float32(cfg.loss_lan)),
+            torch.float32, dev)
+    lam = lam * keep
     lam = (lam / device_scalar(max(ss - 1, 1), torch.float32, dev)).view(
         knows.shape)
     thr = (-torch.expm1(-lam.to(torch.float64))).to(torch.float32)
@@ -352,12 +371,13 @@ def lan_arrivals(knows: torch.Tensor, tx_lan: torch.Tensor,
     return senders, got
 
 
-def bridge_known(knows: torch.Tensor, cfg: GeoConfig):
-    """(bk bool[S, E], bk_cnt float32[S, E]): which events each segment's
-    bridge set holds, and by how many bridges."""
-    rows = knows.view(-1, cfg.seg_size, cfg.events)[:, :cfg.bridges_per_segment]
-    bk = torch.any(rows, dim=1)
-    cnt = torch.sum(rows, dim=1, dtype=torch.int32).to(torch.float32)
+def bridge_known(knows: torch.Tensor, cfg: GeoConfig, nb: int = 0):
+    """(bk bool[*B, S, E], bk_cnt float32[*B, S, E]): which events each
+    segment's bridge set holds, and by how many bridges."""
+    rows = knows.view(*knows.shape[:nb], -1, cfg.seg_size,
+                      cfg.events)[..., :cfg.bridges_per_segment, :]
+    bk = torch.any(rows, dim=-2)
+    cnt = torch.sum(rows, dim=-2, dtype=torch.int32).to(torch.float32)
     return bk, cnt
 
 
@@ -383,12 +403,30 @@ def _ewma(cfg: GeoConfig, ewma: torch.Tensor,
           admitted: torch.Tensor) -> torch.Tensor:
     """``(1 - gain) * ewma + gain * admitted`` as XLA compiles it: the
     constant ``1 - gain`` folded in float32 and the first product fused
-    into the sum (``xla_math.fma``)."""
-    gain = np.float32(cfg.ae_gain)
+    into the sum (``xla_math.fma``); a swept ``[U]`` gain takes the same
+    order with ``1 - gain`` computed in float32."""
     dev = ewma.device
+    if is_knob(cfg.ae_gain):
+        gain = lift(cfg.ae_gain.to(device=dev, dtype=torch.float32), 1)
+        return xla_math.fma(1.0 - gain, ewma,
+                            gain * admitted.to(torch.float32))
+    gain = np.float32(cfg.ae_gain)
     g_adm = device_scalar(float(gain), torch.float32, dev) * admitted.to(
         torch.float32)
     return xla_math.fma(float(np.float32(1.0) - gain), ewma, g_adm)
+
+
+def _ring_slots(state: GeoState, t: torch.Tensor, lat: torch.Tensor,
+                L: int):
+    """Per-universe index tuple of ring slot ``(t + lat) % L`` (``lat``
+    broadcast against ``[*B, 1]``) into a ``[*B, L, ...]`` plane."""
+    nb = t.dim()
+    slot = (t.reshape(*t.shape, *([1] * lat.dim())) + lat) % L
+    if not nb:
+        return (slot,)
+    uni = torch.arange(t.numel(), device=t.device).view(
+        *t.shape, *([1] * lat.dim()))
+    return (uni, slot)
 
 
 def link_plane(state: GeoState, bk: torch.Tensor, bk_cnt: torch.Tensor,
@@ -397,80 +435,89 @@ def link_plane(state: GeoState, bk: torch.Tensor, bk_cnt: torch.Tensor,
                consts: GeoConstants) -> LinkStep:
     """Beliefs, offers, admission, the latency ring and the controller,
     from this tick's bridge-known masks: the reference's steps 2-6 up to
-    the delivery slots, and the EWMA of step 7."""
+    the delivery slots, and the EWMA of step 7.  Every plane carries the
+    state's universe axes first."""
     S, E, L = cfg.segments, cfg.events, cfg.wan_window
     U, ss, B = cfg.cap_units, cfg.seg_size, cfg.bridges_per_segment
     S2 = cfg.n_links
     t = state.tick
+    nb = t.dim()
+    lead = t.shape
     dev = bk.device
     c = consts
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
 
     # Feedback: what the src believes the dst knows, latency[s, d] ticks
     # late (lat >= 1 on cross links keeps the read off the slot written).
-    slot = (t % L).long().view(1)
     known_hist = state.known_hist.clone()
-    known_hist.index_copy_(0, slot, bk[None])
-    belief = known_hist[(t - c.lat) % L, c.dst]           # [S2, E]
-    src_bk = bk[c.src]
+    known_hist[_ring_slots(state, t, zero, L)] = bk.view(
+        *lead, 1, S, E) if nb else bk[None]
+    belief = known_hist[(*_ring_slots(state, t, -c.lat, L), c.dst)]
+    src_bk = bk[..., c.src, :]
 
     # Anti-entropy offers (the adaptive seam).
     missing = src_bk & ~belief & c.cross[:, None]
     miss_i = missing.to(torch.int32)
     rank = _cumsum(miss_i) - miss_i
     if cfg.adaptive:
-        backlog = torch.sum(state.queue, dim=1, dtype=torch.int32)
+        backlog = torch.sum(state.queue, dim=-1, dtype=torch.int32)
         batch = torch.clamp(
             torch.floor(state.ewma).to(torch.int32) + 1 - backlog,
             0, cfg.ae_batch)
     else:
-        batch = torch.full((S2,), cfg.ae_batch, dtype=torch.int32,
+        batch = torch.full((*lead, S2), cfg.ae_batch, dtype=torch.int32,
                            device=dev)
-    ae = (missing & (rank < batch[:, None])).to(torch.int32)
+    ae = (missing & (rank < batch[..., None])).to(torch.int32)
 
     # WAN gossip offers: Poisson-staggered bridge chatter.
     rate = device_scalar(cfg.wan_rate * cfg.fanout_wan / max(S - 1, 1),
                          torch.float32, dev)
-    lam_g = bk_cnt[c.src] * rate * c.cross[:, None].to(torch.float32)
+    lam_g = bk_cnt[..., c.src, :] * rate * c.cross[:, None].to(torch.float32)
     gossip = poisson(k_gossip, lam_g, lam_max=cfg.gossip_lam_max)
 
     # Admission against the bandwidth schedule.
     cap_f = link_capacity_at(cfg.faults, t, S,
-                             base=cfg.wan_capacity_bytes).reshape(S2)
+                             base=cfg.wan_capacity_bytes).reshape(*lead, S2)
     cap_units = torch.clamp(
         torch.floor(cap_f / device_scalar(cfg.wan_msg_bytes, torch.float32,
                                           dev)), 0, U).to(torch.int32)
     cap_units = torch.where(c.cross, cap_units, 0).to(torch.int32)
-    stream = torch.cat([state.queue, ae, gossip], dim=1)
+    stream = torch.cat([state.queue, ae, gossip], dim=-1)
     adm, deferred, ovf = admit_link_units(stream, cap_units, cfg.queue_units)
-    admitted_e = adm[:, :E] + adm[:, E:2 * E] + adm[:, 2 * E:]
+    admitted_e = adm[..., :E] + adm[..., E:2 * E] + adm[..., 2 * E:]
     # Gossip is UDP-like: a congested link drops it into overflow; only
     # the anti-entropy stream defers into the queue.
-    queue = deferred[:, :E] + deferred[:, E:2 * E]
-    offered = torch.sum(ae + gossip, dim=1, dtype=torch.int32)
-    admitted = torch.sum(admitted_e, dim=1, dtype=torch.int32)
-    overflow = (torch.sum(ovf, dim=1, dtype=torch.int32)
-                + torch.sum(deferred[:, 2 * E:], dim=1, dtype=torch.int32))
+    queue = deferred[..., :E] + deferred[..., E:2 * E]
+    offered = torch.sum(ae + gossip, dim=-1, dtype=torch.int32)
+    admitted = torch.sum(admitted_e, dim=-1, dtype=torch.int32)
+    overflow = (torch.sum(ovf, dim=-1, dtype=torch.int32)
+                + torch.sum(deferred[..., 2 * E:], dim=-1, dtype=torch.int32))
 
     # The latency ring: this tick's arrivals leave, admissions enter.
-    arriving = state.ring.index_select(0, slot)[0]        # [S2, E]
+    now = _ring_slots(state, t, zero, L)
+    arriving = state.ring[now].reshape(*lead, S2, E)
     ring = state.ring.clone()
-    ring.index_fill_(0, slot, 0)
-    ring.index_put_(((t + c.lat) % L, c.link), admitted_e, accumulate=True)
+    ring[now] = 0
+    ring.index_put_((*_ring_slots(state, t, c.lat, L), c.link), admitted_e,
+                    accumulate=True)
 
     ev_slot, valid = expand_delivery_slots(arriving, U)
     # Each unit lands on one uniformly drawn bridge of the destination.
     tb = randint(k_tgt, (S2, U), 0, B)
     recv = (c.dst[:, None] * ss + tb).to(torch.int32)
-    live = valid & bernoulli_mask(k_loss, (S2, U), _p_wan(cfg, t))
+    p_wan = _p_wan(cfg, t)
+    live = valid & bernoulli_mask(k_loss, (S2, U),
+                                  lift(p_wan, 2) if p_wan.dim() else p_wan)
     # Capacity spent on events the dst bridge set already held, counted
     # at link exit over every arriving unit.
     wasted = state.wasted + torch.sum(
-        arriving * bk[c.dst].to(torch.int32), dtype=torch.int32)
+        arriving * bk[..., c.dst, :].to(torch.int32), dim=(-2, -1),
+        dtype=torch.int32)
     return LinkStep(
         ring=ring, queue=queue, known_hist=known_hist,
         ewma=_ewma(cfg, state.ewma, admitted), wasted=wasted,
         offered=offered, admitted=admitted,
-        queued=torch.sum(queue, dim=1, dtype=torch.int32),
+        queued=torch.sum(queue, dim=-1, dtype=torch.int32),
         overflow=overflow, recv=recv, ev_slot=ev_slot, live=live,
     )
 
@@ -484,11 +531,12 @@ def merge(knows: torch.Tensor, tx_lan: torch.Tensor, senders: torch.Tensor,
     return knows | newly, tx
 
 
-def per_segment_done(knows: torch.Tensor, cfg: GeoConfig) -> torch.Tensor:
-    """int32[S]: nodes of each segment holding ALL events."""
-    full = torch.all(knows.view(-1, cfg.events), dim=1)
-    return torch.sum(full.view(cfg.segments, cfg.seg_size), dim=1,
-                     dtype=torch.int32)
+def per_segment_done(knows: torch.Tensor, cfg: GeoConfig,
+                     nb: int = 0) -> torch.Tensor:
+    """int32[*B, S]: nodes of each segment holding ALL events."""
+    full = torch.all(knows, dim=-1)
+    return torch.sum(full.reshape(*knows.shape[:nb], cfg.segments,
+                                  cfg.seg_size), dim=-1, dtype=torch.int32)
 
 
 def geo_round(state: GeoState, key: torch.Tensor, cfg: GeoConfig,
@@ -500,28 +548,33 @@ def geo_round(state: GeoState, key: torch.Tensor, cfg: GeoConfig,
     ``per_segment`` int32[S] counts nodes holding ALL events, the link
     counters are int32[S2] in units, ``queued`` the post-tick queue depth
     and ``wasted`` the cumulative arriving units whose event the
-    destination's bridge set already held."""
+    destination's bridge set already held.  A sweep's state and key
+    batch give each a leading universe axis."""
     n, E = cfg.n, cfg.events
     dev = state.knows.device
+    nb = state.tick.dim()
     if consts is None:
         consts = geo_constants(cfg, dev)
     k_lan, k_gossip, k_tgt, k_loss = split(key, 4).unbind(-2)
     knows = state.knows
 
     idx = torch.arange(n, dtype=torch.int32, device=dev)
-    senders, got_lan = lan_arrivals(knows, state.tx_lan, idx, k_lan, cfg)
-    bk, bk_cnt = bridge_known(knows, cfg)
+    senders, got_lan = lan_arrivals(knows, state.tx_lan, idx, k_lan, cfg, nb)
+    bk, bk_cnt = bridge_known(knows, cfg, nb)
     step = link_plane(state, bk, bk_cnt, k_gossip, k_tgt, k_loss, cfg, consts)
 
-    flat = torch.where(step.live, step.recv.long() * E + step.ev_slot,
-                       n * E).reshape(-1)
-    hits = torch.zeros(n * E + 1, dtype=torch.bool, device=dev)
-    hits[flat] = True
-    got_wan = hits[:n * E].view(n, E) & ~knows
+    flat = torch.where(step.live, step.recv.long() * E + step.ev_slot, n * E)
+    if nb:
+        base = torch.arange(state.tick.numel(), device=dev)
+        flat = flat + base.view(*state.tick.shape, 1, 1) * (n * E + 1)
+    hits = torch.zeros((*state.tick.shape, n * E + 1), dtype=torch.bool,
+                       device=dev)
+    hits.view(-1)[flat.reshape(-1)] = True
+    got_wan = hits[..., :n * E].view(knows.shape) & ~knows
 
     new_knows, tx_lan = merge(knows, state.tx_lan, senders, got_lan | got_wan,
                               cfg)
-    outs = (per_segment_done(new_knows, cfg), step.offered, step.admitted,
+    outs = (per_segment_done(new_knows, cfg, nb), step.offered, step.admitted,
             step.queued, step.overflow, step.wasted)
     nxt = GeoState(
         knows=new_knows, tx_lan=tx_lan, ring=step.ring, queue=step.queue,

@@ -11,7 +11,9 @@ re-queue (serf/serf.go:459-516, memberlist/queue.go:288-373), as one
                  recipients get retransmit_limit(mult, n) of them.
 
 One tick is one GossipInterval.  An ``alive`` mask takes dead nodes out
-of the sender set and the target pool.
+of the sender set and the target pool.  A round also runs a sweep's U
+universes at once: state planes ``[U, n]``, keys ``[U, 2]``, and ``loss``
+(and, under aggregate delivery, ``fanout``) may be ``[U]`` knobs.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from consul_tpu_torch.ops import (
     sample_peers,
     split,
 )
+from consul_tpu_torch.ops.knobs import is_knob, lift
 from consul_tpu_torch.protocol import LAN, GossipProfile, retransmit_limit
 
 
@@ -89,7 +92,10 @@ def spend_budget(state: BroadcastState, new_knows: torch.Tensor,
     """Senders spent one transmission per target packet this tick
     (queue.go:288-373); fresh recipients queue the event with a full
     budget.  Shared by the unsharded round and the sharded tick."""
-    spent = torch.where(senders, cfg.fanout, 0).to(torch.int32)
+    fanout = cfg.fanout
+    if is_knob(fanout):
+        fanout = lift(fanout.to(senders.device), 1)
+    spent = torch.where(senders, fanout, 0).to(torch.int32)
     tx_left = torch.clamp(state.tx_left - spent, min=0)
     newly = new_knows & ~state.knows
     tx_left = torch.where(newly, cfg.tx_limit, tx_left).to(torch.int32)
@@ -117,8 +123,11 @@ def broadcast_round(state: BroadcastState, key: torch.Tensor,
             targets = sample_peers(k_sel, n, fanout)            # [n, f]
         else:
             targets = sample_alive_peers(k_sel, alive, fanout)
-        delivered = senders[:, None] & bernoulli_mask(
-            k_loss, (n, fanout), 1.0 - cfg.loss
+        keep = 1.0 - cfg.loss
+        if is_knob(keep):
+            keep = lift(keep.to(senders.device), 2)
+        delivered = senders[..., None] & bernoulli_mask(
+            k_loss, (n, fanout), keep
         )
         if alive is not None:
             delivered = delivered & alive[targets.long()]

@@ -39,9 +39,11 @@ from consul_tpu_torch.models.swim import (
     expire_suspicions,
     mature_probes,
     newest_era,
+    row_fanout,
     spend,
+    swim_constants,
     swim_init,
-    timeout_table,
+    timeout_ticks_of,
 )
 from consul_tpu_torch.ops import (
     owned_uniform,
@@ -50,6 +52,8 @@ from consul_tpu_torch.ops import (
     sample_probe_targets,
     split,
 )
+from consul_tpu_torch.ops.knobs import is_knob, lift
+from consul_tpu_torch.ops.xla_math import integer_pow
 from consul_tpu_torch.protocol import awareness_scaled_timeout
 from consul_tpu_torch.sim.faults import (
     FaultSchedule,
@@ -98,9 +102,11 @@ class LifeguardConfig(SwimConfig):
 
 class LifeguardConstants(NamedTuple):
     """What a round reads that depends on the config alone, built once
-    per study by :func:`lifeguard_constants`."""
+    per study by :func:`lifeguard_constants`.  A swept severity or
+    ``ack_late`` gives one row per universe: ``[U, n]`` planes, ``[U]``
+    means."""
 
-    timeout: torch.Tensor   # float32[k+1]: swim.timeout_table
+    timeout: torch.Tensor   # float32[k+1] ([U, k+1] swept): timeout table
     send_ok: torch.Tensor   # float32[n]: degraded_send_ok
     mean_ok: torch.Tensor   # float32 scalar: mean of send_ok
     p_late: torch.Tensor    # float32[n]: combine_loss(ack_late, degraded_late)
@@ -109,38 +115,24 @@ class LifeguardConstants(NamedTuple):
 def lifeguard_constants(cfg: LifeguardConfig, device) -> LifeguardConstants:
     n = cfg.n
     send_ok = degraded_send_ok(cfg.faults, n, device)
+    ack_late = cfg.ack_late
+    ack_late = (lift(ack_late, 1) if is_knob(ack_late)
+                else device_scalar(ack_late, torch.float32, device))
     return LifeguardConstants(
-        timeout=timeout_table(cfg).to(device),
+        timeout=swim_constants(cfg, device).timeout,
         send_ok=send_ok,
         mean_ok=mean_f32(send_ok),
-        p_late=combine_loss(
-            device_scalar(cfg.ack_late, torch.float32, device),
-            degraded_late(cfg.faults, n, device),
-        ),
+        p_late=combine_loss(ack_late, degraded_late(cfg.faults, n, device)),
     )
 
 
 def mean_f32(x: torch.Tensor) -> torch.Tensor:
-    """float32 mean as the reference's compiled program takes it: XLA
-    turns ``sum / n`` into ``sum * f32(1/n)``, the float32 reciprocal.
-    (``torch.mean`` divides on the CPU, so it differs by an ulp at most
-    n that are not powers of two.)"""
-    inv = float(np.float32(1.0) / np.float32(x.numel()))
-    return torch.sum(x, dtype=torch.float32) * inv
-
-
-def integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
-    """``x ** y`` for a static int ``y >= 0`` in the order of XLA's
-    ``integer_pow``: square-and-multiply from the low bit, so
-    ``x**3 = x * (x*x)``."""
-    acc = None
-    while y > 0:
-        if y & 1:
-            acc = x if acc is None else acc * x
-        y >>= 1
-        if y > 0:
-            x = x * x
-    return torch.ones_like(x) if acc is None else acc
+    """float32 mean over the last axis as the reference's compiled
+    program takes it: XLA turns ``sum / n`` into ``sum * f32(1/n)``, the
+    float32 reciprocal.  (``torch.mean`` divides on the CPU, so it
+    differs by an ulp at most n that are not powers of two.)"""
+    inv = float(np.float32(1.0) / np.float32(x.shape[-1]))
+    return torch.sum(x, dim=-1, dtype=torch.float32) * inv
 
 
 def lifeguard_init(cfg: LifeguardConfig, device=None) -> LifeguardState:
@@ -148,36 +140,40 @@ def lifeguard_init(cfg: LifeguardConfig, device=None) -> LifeguardState:
 
 
 def _segment_sums(w: torch.Tensor, bounds: list[int]) -> torch.Tensor:
-    """float32[S]: the sum of ``w`` over each contiguous segment, one
+    """float32[*B, S]: the sum of ``w`` over each contiguous segment, one
     slice sum each in a fixed order (an ``index_add_`` would use float
     atomics on CUDA, which do not repeat from run to run)."""
-    return torch.stack([torch.sum(w[a:b]) for a, b in zip(bounds, bounds[1:])])
+    return torch.stack([torch.sum(w[..., a:b], dim=-1)
+                        for a, b in zip(bounds, bounds[1:])], dim=-1)
 
 
 def arrival_rate(cfg: LifeguardConfig, t: torch.Tensor, w: torch.Tensor,
                  participates: torch.Tensor) -> torch.Tensor:
-    """float32[n] Poisson intensity of one message class: each receiver
-    hears ``fanout / (n-1)`` of the other senders' surviving weight ``w``,
-    cross-cut weight scaled by the partition's ``1 - severity``; absent
-    receivers hear nothing."""
+    """float32[*B, n] Poisson intensity of one message class: each
+    receiver hears ``fanout / (n-1)`` of the other senders' surviving
+    weight ``w``, cross-cut weight scaled by the partition's
+    ``1 - severity``; absent receivers hear nothing."""
     n = cfg.n
+    total = torch.sum(w, dim=-1, keepdim=True)
     if cfg.faults.partitions:
         part = cfg.faults.partitions[0]
         seg = segment_ids(part, n, w.device).long()
-        same = _segment_sums(w, segment_bounds(part, n))[seg]
-        sev = partition_severity_at(part, t)
-        reach = (same - w) + (1.0 - sev) * (torch.sum(w) - same)
+        same = _segment_sums(w, segment_bounds(part, n))[..., seg]
+        sev = partition_severity_at(part, t)[..., None]
+        reach = (same - w) + (1.0 - sev) * (total - same)
     else:
-        reach = torch.sum(w) - w
+        reach = total - w
     denom = device_scalar(max(n - 1, 1), torch.float32, w.device)
-    return torch.where(participates, reach * cfg.fanout / denom, 0.0)
+    return torch.where(participates,
+                       reach * row_fanout(cfg.fanout, w) / denom, 0.0)
 
 
 def lifeguard_round(state: LifeguardState, key: torch.Tensor,
                     cfg: LifeguardConfig,
                     consts: LifeguardConstants | None = None) -> LifeguardState:
     """One tick.  ``consts`` is :func:`lifeguard_constants` of ``cfg``,
-    built here when not given."""
+    built here when not given.  Batches over a sweep's universes as
+    ``swim_round`` does."""
     n, f, fanout = cfg.n, cfg.subject, cfg.fanout
     faults = cfg.faults
     dev = state.view.device
@@ -188,9 +184,10 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
     (k_gossip, k_loss, k_probe, k_pfail, k_aware, k_nack,
      k_churn) = split(key, 7).unbind(-2)
 
-    # Fault environment this tick.
-    loss_t = combine_loss(device_scalar(cfg.loss, torch.float32, dev),
-                          extra_loss_at(faults, t))
+    # Fault environment this tick: per-universe scalars [*B] as columns.
+    loss = cfg.loss
+    loss = loss if is_knob(loss) else device_scalar(loss, torch.float32, dev)
+    loss_t = combine_loss(loss, extra_loss_at(faults, t))[..., None]
     send_ok = consts.send_ok
     online = online_mask(faults, k_churn, t, n)
 
@@ -199,7 +196,7 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
     not_subject = ~is_subject
     # A crashed subject is gone for good; churned-off nodes sit out one
     # tick (neither send, receive, nor probe).
-    participates = online & ~(is_subject & subject_dead_now)
+    participates = online & ~(is_subject & subject_dead_now[..., None])
     can_send = participates
 
     # 1. Gossip fan-out under the fault environment.
@@ -208,11 +205,13 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
                (state.tx_refute, state.ref_era))
     if cfg.delivery == "edges":
         targets = sample_peers(k_gossip, n, fanout)                 # [n, F]
-        p_edge = ((1.0 - loss_t) * send_ok[:, None]
+        p_edge = ((1.0 - loss_t[..., None]) * send_ok[..., None]
                   * (1.0 - edge_block_prob(faults, t, rows[:, None],
                                            targets, n)))
         wire_ok = owned_uniform(k_loss, rows, (fanout,)) < p_edge
-        wire_ok = wire_ok & participates[targets.long()]
+        wire_ok = wire_ok & torch.gather(
+            participates, -1, targets.reshape(*targets.shape[:-2], -1).long(),
+        ).view(targets.shape)
         sus_rx, dead_rx, ref_rx = (
             edge_eras(targets, wire_ok, can_send, tx_left, era)
             for tx_left, era in classes
@@ -248,7 +247,7 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
     )
 
     # 3. Probe plane with NHM accounting.
-    is_probe_tick = (t % cfg.probe_interval_ticks) == 0
+    is_probe_tick = ((t % cfg.probe_interval_ticks) == 0)[..., None]
     probe_target = sample_probe_targets(k_probe, n)
     probed_f = ((probe_target == f) & can_send & not_subject
                 & (view != VIEW_DEAD))
@@ -256,8 +255,11 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
     k_ind = cfg.profile.indirect_checks
     ok1 = 1.0 - loss_t                        # one generic wire leg
     mean_ok = consts.mean_ok                  # relay-population quality
-    send_ok_f = send_ok[f]
-    block_if = edge_block_prob(faults, t, rows, rows[f], n)
+    if mean_ok.dim():
+        mean_ok = mean_ok[..., None]
+    send_ok_f = send_ok[..., f:f + 1]
+    block_if = edge_block_prob(faults, t, rows.expand(*t.shape, n), rows[f],
+                               n)
     # Direct round trip, each leg crossing the cut once (state.go:326-380).
     leg_out = ok1 * send_ok * (1.0 - block_if)
     leg_back = ok1 * send_ok_f * (1.0 - block_if)
@@ -266,8 +268,9 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
     ind_ok = ((ok1 * send_ok) * (ok1 * mean_ok) * (ok1 * send_ok_f)
               * (ok1 * mean_ok) * integer_pow(1.0 - block_if, 2))
     p_fail_subject = p_direct_fail * integer_pow(1.0 - ind_ok, k_ind)
-    subject_gone = subject_dead_now | ~online[f]
-    p_fail_subject = torch.where(subject_gone, 1.0, p_fail_subject)
+    subject_gone = subject_dead_now | ~online[..., f]
+    p_fail_subject = torch.where(subject_gone[..., None], 1.0,
+                                 p_fail_subject)
 
     # Late acks: a failure to a score-0 observer (and always with
     # Lifeguard off), rescued by a stretched window (score >= 1).
@@ -276,7 +279,8 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
     rescued = (state.awareness >= 1) & cfg.lifeguard
     late_fail = ack_is_late & ~rescued
     hard_fail_subject = owned_uniform(k_hard, rows) < p_fail_subject
-    probe_failed = (probed_f & (hard_fail_subject | (late_fail & ~subject_gone))
+    probe_failed = (probed_f & (hard_fail_subject
+                                | (late_fail & ~subject_gone[..., None]))
                     & is_probe_tick)
 
     # The whole probe cycle scales with the prober's health going into
@@ -286,7 +290,7 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
         cycle = awareness_scaled_timeout(cycle, state.awareness)
     probe_pending_at = torch.where(
         probe_failed & (state.probe_pending_at == NEVER),
-        t + cycle, state.probe_pending_at,
+        t[..., None] + cycle, state.probe_pending_at,
     )
 
     # Probes of other live targets drive awareness too.
@@ -303,8 +307,8 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
     # survive; a late-processing node misses its nacks like its ack.
     p_nack = (ok1 * send_ok) * (ok1 * mean_ok)
     nacks = torch.sum(
-        owned_uniform(k_nack, rows, (max(k_ind, 1),)) < p_nack[:, None],
-        dim=1, dtype=torch.int32,
+        owned_uniform(k_nack, rows, (max(k_ind, 1),)) < p_nack[..., None],
+        dim=-1, dtype=torch.int32,
     )
     nacks = torch.where(ack_is_late, 0, nacks)
     if k_ind > 0:
@@ -315,7 +319,7 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
                         -probing_any.to(torch.int32))
     # Being refuted costs the accused-but-alive subject a health point
     # (state.go:880-915 refute -> ApplyDelta(1)).
-    delta = delta + (is_subject & refute_now).to(torch.int32)
+    delta = delta + (is_subject & refute_now[..., None]).to(torch.int32)
     if cfg.lifeguard:
         awareness = torch.clamp(state.awareness + delta, 0,
                                 cfg.profile.awareness_max_multiplier - 1)
@@ -329,15 +333,14 @@ def lifeguard_round(state: LifeguardState, key: torch.Tensor,
 
     # 4. Suspicion expiry with the health-scaled minimum: a degraded
     #    observer's floor rises to lo * (score + 1).
-    timeout_ticks = consts.timeout[confirmations.long()]
+    timeout_ticks = timeout_ticks_of(consts.timeout, confirmations)
     if cfg.lifeguard:
         lo, _hi = cfg.suspicion_bounds_ticks
+        lo = (lift(lo, 1) if is_knob(lo)
+              else device_scalar(lo, torch.float32, dev))
         timeout_ticks = torch.maximum(
             timeout_ticks,
-            awareness_scaled_timeout(
-                device_scalar(lo, torch.float32, dev),
-                awareness.to(torch.float32),
-            ),
+            awareness_scaled_timeout(lo, awareness.to(torch.float32)),
         )
     view, suspect_since, tx_suspect, tx_dead, dead_era = expire_suspicions(
         cfg, t, timeout_ticks, view, inc_seen, suspect_since, tx_suspect,

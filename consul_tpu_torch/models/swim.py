@@ -19,6 +19,12 @@ reference; one tick is one GossipInterval.  A round is a pure function
 of ``(state, key)``: it allocates new tensors and never writes into the
 state it was given (the Lifeguard scan diffs the two).  Nothing in a
 round reads a device value back to the host.
+
+A round also advances a sweep's U universes at once: keys ``[U, 2]``,
+node planes ``[U, n]`` and the scalars ``subject_inc``/``tick`` ``[U]``;
+``loss``, ``suspicion_scale`` and (aggregate delivery) the profile's
+``gossip_nodes`` may then be ``[U]`` knobs, consumed in the float32
+order of the reference's traced program.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from consul_tpu_torch.device import device_scalar, resolve_device
@@ -38,6 +45,8 @@ from consul_tpu_torch.ops import (
     sample_probe_targets,
     split,
 )
+from consul_tpu_torch.ops.knobs import is_knob, lift
+from consul_tpu_torch.ops.xla_math import integer_pow
 from consul_tpu_torch.protocol import (
     LAN,
     GossipProfile,
@@ -109,13 +118,29 @@ class SwimConfig:
         )
         g = self.profile.gossip_interval_ms
         s = self.suspicion_scale
+        if is_knob(s):
+            # Traced: XLA folds ``ms * s / g`` into ``s * f32(f32(ms) *
+            # f32(1 / g))``, two float32 [U] bounds that are not whole
+            # ticks even at s = 1.
+            inv_g = np.float32(1.0) / np.float32(g)
+            return tuple(
+                s * torch.full((), float(np.float32(np.float32(ms) * inv_g)),
+                               dtype=torch.float32, device=s.device)
+                for ms in (lo_ms, hi_ms))
         return lo_ms * s / g, hi_ms * s / g
 
     @property
     def probe_fail_prob_alive(self) -> float:
         """P(a probe of the live subject fails) under Bernoulli loss: the
         direct round trip (2 legs) and each indirect path (4 legs) all
-        drop (state.go:326-454)."""
+        drop (state.go:326-454).  A swept ``loss`` gives float32 [U]
+        tensor arithmetic in the traced program's order."""
+        if is_knob(self.loss):
+            ok = 1.0 - self.loss.to(torch.float32)
+            p_direct = 1.0 - ok * ok
+            p_indirect = 1.0 - integer_pow(ok, 4)
+            return p_direct * integer_pow(p_indirect,
+                                          self.profile.indirect_checks)
         ok = 1.0 - self.loss
         p_direct = 1.0 - ok**2
         p_indirect = 1.0 - ok**4
@@ -188,15 +213,54 @@ def timeout_table(cfg: SwimConfig, fused: bool = True) -> torch.Tensor:
     return torch.maximum(torch.ceil(raw), lo32)
 
 
+def traced_timeout_table(cfg: SwimConfig) -> torch.Tensor:
+    """float32[U, k+1]: :func:`timeout_table` for a swept
+    ``suspicion_scale`` [U], in the order of the reference's traced
+    program (read off its optimized HLO): the bounds ``lo``/``hi`` are
+    the float32 [U] values of ``suspicion_bounds_ticks``, ``frac =
+    log(c+1) * f32(1 / log(k+1))``, ``raw = hi - frac * (hi - lo)`` with
+    the product fused into the subtraction, then ``max(ceil(raw), lo)``
+    against the UNROUNDED ``lo``: the traced floor is not a whole tick,
+    so even s = 1 is not the static table."""
+    lo, hi = cfg.suspicion_bounds_ticks
+    k = cfg.confirmations_k
+    f32 = torch.float32
+    if k < 1:
+        return lo[..., None]
+    dev = lo.device
+    log_c = torch.log(torch.arange(k + 1, dtype=f32) + 1.0).to(dev)
+    inv = float(np.float32(1.0) / np.float32(math.log(k + 1.0)))
+    frac = log_c * torch.full((), inv, dtype=f32, device=dev)
+    span = (hi - lo)[..., None]
+    raw = (hi[..., None].double() - frac.double() * span.double()).to(f32)
+    return torch.maximum(torch.ceil(raw), lo[..., None])
+
+
 class SwimConstants(NamedTuple):
     """What a round reads that depends on the config alone, built once
     per study (:func:`swim_constants`) instead of once per tick."""
 
-    timeout: torch.Tensor   # float32[k+1] on the device: timeout_table
+    timeout: torch.Tensor   # float32[k+1] (a sweep's knob: [U, k+1])
 
 
 def swim_constants(cfg: SwimConfig, device) -> SwimConstants:
+    if is_knob(cfg.suspicion_scale):
+        return SwimConstants(timeout=traced_timeout_table(cfg).to(device))
     return SwimConstants(timeout=timeout_table(cfg).to(device))
+
+
+def timeout_ticks_of(timeout: torch.Tensor,
+                     confirmations: torch.Tensor) -> torch.Tensor:
+    """Each observer's suspicion timeout: the table entry at its
+    confirmation count (a per-universe row for a swept table)."""
+    if timeout.dim() == 1:
+        return timeout[confirmations.long()]
+    return torch.gather(timeout, -1, confirmations.long())
+
+
+def _col(x: torch.Tensor) -> torch.Tensor:
+    """A per-universe scalar (``[*B]``) as a column against ``[*B, n]``."""
+    return x[..., None]
 
 
 def _merge_deliveries(cfg: SwimConfig, t: torch.Tensor, state: SwimState,
@@ -228,7 +292,7 @@ def _merge_deliveries(cfg: SwimConfig, t: torch.Tensor, state: SwimState,
 
     view = torch.where(fresh_suspect, VIEW_SUSPECT, view)
     inc_seen = torch.where(fresh_suspect, sus_rx, inc_seen)
-    suspect_since = torch.where(fresh_suspect, t, suspect_since)
+    suspect_since = torch.where(fresh_suspect, _col(t), suspect_since)
     rebroadcast_sus = fresh_suspect | gained_conf
     tx_suspect = torch.where(rebroadcast_sus, cfg.tx_limit, tx_suspect)
     sus_era = torch.where(rebroadcast_sus, torch.maximum(sus_era, sus_rx),
@@ -237,12 +301,12 @@ def _merge_deliveries(cfg: SwimConfig, t: torch.Tensor, state: SwimState,
     # The subject, while alive, refutes every accusation with
     # incarnation accused+1 (state.go:880-915).
     subject_live_now = (t < cfg.fail_at_tick) | cfg.subject_alive
-    accused = torch.maximum(sus_rx[f], dead_rx[f])
+    accused = torch.maximum(sus_rx[..., f], dead_rx[..., f])
     refute_now = subject_live_now & (accused >= state.subject_inc)
     subject_inc = torch.where(refute_now, accused + 1, state.subject_inc)
-    refuting = is_subject & refute_now
+    refuting = is_subject & _col(refute_now)
     tx_refute = torch.where(refuting, cfg.tx_limit, tx_refute)
-    ref_era = torch.where(refuting, subject_inc, ref_era)
+    ref_era = torch.where(refuting, _col(subject_inc), ref_era)
 
     # An alive message with a strictly higher incarnation overrides any
     # view, DEAD included, and invalidates queued suspect/dead messages.
@@ -259,7 +323,7 @@ def _merge_deliveries(cfg: SwimConfig, t: torch.Tensor, state: SwimState,
     # Dead overrides suspect/alive at >= the receiver's incarnation
     # (state.go:1228-1232); a live subject refutes its own obituary.
     accept_dead = (dead_rx >= inc_seen) & (view != VIEW_DEAD)
-    accept_dead = accept_dead & (not_subject | ~subject_live_now)
+    accept_dead = accept_dead & (not_subject | _col(~subject_live_now))
     view = torch.where(accept_dead, VIEW_DEAD, view)
     inc_seen = torch.where(accept_dead, dead_rx, inc_seen)
     suspect_since = torch.where(accept_dead, NEVER, suspect_since)
@@ -274,24 +338,30 @@ def _merge_deliveries(cfg: SwimConfig, t: torch.Tensor, state: SwimState,
     )
 
 
+def row_fanout(fanout, plane: torch.Tensor):
+    """``fanout`` as a factor of a ``[*B, n]`` plane: a Python int, or a
+    swept ``[*B]`` int32 knob as a column."""
+    return lift(fanout.to(plane.device), 1) if is_knob(fanout) else fanout
+
+
 def spend(tx_left: torch.Tensor, can_send: torch.Tensor,
-          fanout: int) -> torch.Tensor:
+          fanout) -> torch.Tensor:
     """One transmission per target packet drained this tick, int32."""
     send = can_send & (tx_left > 0)
-    return torch.clamp(tx_left - send.to(torch.int32) * fanout, min=0)
+    return torch.clamp(tx_left - send.to(torch.int32)
+                       * row_fanout(fanout, tx_left), min=0)
 
 
 def edge_eras(targets: torch.Tensor, wire_ok: torch.Tensor,
               can_send: torch.Tensor, tx_left: torch.Tensor,
               era: torch.Tensor) -> torch.Tensor:
-    """int32[n]: max incarnation among the copies of one message class
-    received this tick over explicit edges (NO_MSG if none)."""
-    n, fanout = targets.shape
+    """int32[*B, n]: max incarnation among the copies of one message
+    class received this tick over explicit edges (NO_MSG if none)."""
     send = can_send & (tx_left > 0)
-    delivered = send[:, None] & wire_ok
+    delivered = send[..., None] & wire_ok
     return deliver_max(
-        torch.full((n,), NO_MSG, dtype=torch.int32, device=era.device),
-        targets, era[:, None].expand(n, fanout), delivered,
+        torch.full(era.shape, NO_MSG, dtype=torch.int32, device=era.device),
+        targets, era[..., None].expand(targets.shape), delivered,
     )
 
 
@@ -299,7 +369,7 @@ def newest_era(got: torch.Tensor, send: torch.Tensor,
                era: torch.Tensor) -> torch.Tensor:
     """Aggregate delivery's arriving incarnation: the newest one among
     this tick's senders for receivers that heard the class, else NO_MSG."""
-    newest = torch.max(torch.where(send, era, NO_MSG))
+    newest = torch.amax(torch.where(send, era, NO_MSG), dim=-1, keepdim=True)
     return torch.where(got, newest, NO_MSG)
 
 
@@ -309,7 +379,7 @@ def expire_suspicions(cfg: SwimConfig, t, timeout_ticks, view, inc_seen,
     broadcast deadMsg (state.go:1200-1215); returns the updated
     (view, suspect_since, tx_suspect, tx_dead, dead_era)."""
     # int32 difference: with suspect_since == NEVER it is masked below.
-    elapsed = (t - suspect_since).to(torch.float32)
+    elapsed = (_col(t) - suspect_since).to(torch.float32)
     expire = ((view == VIEW_SUSPECT) & (suspect_since != NEVER)
               & (elapsed >= timeout_ticks))
     return (
@@ -326,11 +396,11 @@ def mature_probes(cfg: SwimConfig, t, probe_pending_at, view, inc_seen,
     """Pending failed probes that are due turn an ALIVE view SUSPECT at
     the prober's incarnation and broadcast it (state.go:495-496);
     returns (view, suspect_since, tx_suspect, sus_era, probe_pending_at)."""
-    due = probe_pending_at <= t
+    due = probe_pending_at <= _col(t)
     maturing = due & (view == VIEW_ALIVE)
     return (
         torch.where(maturing, VIEW_SUSPECT, view),
-        torch.where(maturing, t, suspect_since),
+        torch.where(maturing, _col(t), suspect_since),
         torch.where(maturing, cfg.tx_limit, tx_suspect),
         torch.where(maturing, inc_seen, sus_era),
         torch.where(due, NEVER, probe_pending_at),
@@ -352,7 +422,7 @@ def swim_round(state: SwimState, key: torch.Tensor, cfg: SwimConfig,
     is_subject = torch.arange(n, dtype=torch.int32, device=dev) == f
     not_subject = ~is_subject
     # A crashed subject neither sends nor receives.
-    participates = ~(is_subject & subject_dead_now)
+    participates = ~(is_subject & _col(subject_dead_now))
     can_send = participates
 
     # 1. Gossip fan-out: one compound packet per (sender, target).
@@ -361,8 +431,14 @@ def swim_round(state: SwimState, key: torch.Tensor, cfg: SwimConfig,
                (state.tx_refute, state.ref_era))
     if cfg.delivery == "edges":
         targets = sample_peers(k_gossip, n, fanout)                 # [n, F]
-        wire_ok = bernoulli_mask(k_loss, (n, fanout), 1.0 - cfg.loss)
-        wire_ok = wire_ok & participates[targets.long()]
+        keep = 1.0 - cfg.loss
+        if is_knob(keep):
+            keep = lift(keep, 2)
+        wire_ok = bernoulli_mask(k_loss, (n, fanout), keep)
+        wire_ok = wire_ok & torch.gather(
+            participates.expand(state.view.shape), -1,
+            targets.reshape(*targets.shape[:-2], -1).long(),
+        ).view(targets.shape)
         sus_rx, dead_rx, ref_rx = (
             edge_eras(targets, wire_ok, can_send, tx_left, era)
             for tx_left, era in classes
@@ -396,20 +472,21 @@ def swim_round(state: SwimState, key: torch.Tensor, cfg: SwimConfig,
 
     # 3. Probe plane, every ProbeInterval ticks: a node probes one
     #    uniform member it does not consider dead (state.go:214-256).
-    is_probe_tick = (t % cfg.probe_interval_ticks) == 0
+    is_probe_tick = _col((t % cfg.probe_interval_ticks) == 0)
     probe_target = sample_probe_targets(k_probe, n)
     probed_f = ((probe_target == f) & can_send & not_subject
                 & (view != VIEW_DEAD))
     # Probes of a crashed subject always fail; of a live one, with the
     # loss-on-every-path probability.
-    p_fail = torch.where(subject_dead_now, 1.0,
-                         device_scalar(cfg.probe_fail_prob_alive,
-                                       torch.float32, dev))
+    p_alive = cfg.probe_fail_prob_alive
+    p_alive = (lift(p_alive, 1) if is_knob(p_alive)
+               else device_scalar(p_alive, torch.float32, dev))
+    p_fail = torch.where(_col(subject_dead_now), 1.0, p_alive)
     probe_failed = (probed_f & bernoulli_mask(k_pfail, (n,), p_fail)
                     & is_probe_tick)
     # A failed probe matures at the end of its cycle, stretched by the
     # prober's health going into it (awareness.go:64 ScaleTimeout).
-    matures_at = (t + cfg.probe_interval_ticks
+    matures_at = (_col(t) + cfg.probe_interval_ticks
                   + state.awareness * cfg.probe_timeout_ticks)
     probe_pending_at = torch.where(
         probe_failed & (state.probe_pending_at == NEVER),
@@ -419,7 +496,7 @@ def swim_round(state: SwimState, key: torch.Tensor, cfg: SwimConfig,
     # successes lower it.
     probing_any = is_probe_tick & can_send & not_subject
     other_failed = (probing_any & ~probed_f
-                    & bernoulli_mask(k_aware, (n,), cfg.probe_fail_prob_alive))
+                    & bernoulli_mask(k_aware, (n,), p_alive))
     any_failed = probe_failed | other_failed
     awareness = torch.clamp(
         state.awareness + any_failed.to(torch.int32)
@@ -432,7 +509,7 @@ def swim_round(state: SwimState, key: torch.Tensor, cfg: SwimConfig,
     )
 
     # 4. Suspicion timeout expiry -> DEAD.
-    timeout_ticks = consts.timeout[confirmations.long()]
+    timeout_ticks = timeout_ticks_of(consts.timeout, confirmations)
     view, suspect_since, tx_suspect, tx_dead, dead_era = expire_suspicions(
         cfg, t, timeout_ticks, view, inc_seen, suspect_since, tx_suspect,
         tx_dead, dead_era,

@@ -12,9 +12,12 @@ append their own shape after it.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from consul_tpu_torch.device import device_scalar
+from consul_tpu_torch.ops.knobs import is_knob, lift
 from consul_tpu_torch.ops.threefry import fold_in, randint, uniform
 
 
@@ -23,40 +26,62 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def owned_keys(key: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Per-node key stream ``fold_in(key, id)``: ``[*ids.shape, 2]``."""
-    return fold_in(key, ids)
+    """Per-node key stream ``fold_in(key, id)``: ``[*B, *ids.shape, 2]``
+    for a key batch ``[*B, 2]`` (one key per universe of a sweep; ``B``
+    empty for a plain run)."""
+    batch = key.shape[:-1]
+    return fold_in(key.reshape(*batch, *([1] * ids.dim()), 2), ids)
 
 
 def owned_uniform(key: torch.Tensor, ids: torch.Tensor,
                   shape: tuple = ()) -> torch.Tensor:
-    """float32 ``[*ids.shape, *shape]`` uniform in [0, 1): row j is node
-    ids[j]'s private stream for this site key."""
+    """float32 ``[*B, *ids.shape, *shape]`` uniform in [0, 1) for a key
+    batch ``[*B, 2]``: row j is node ids[j]'s private stream for this
+    site key.  A draw of more than ``_DRAW_BLOCK`` values over 1-D
+    ``ids`` is generated in row blocks."""
+    shape = tuple(shape)
+    total = key[..., 0].numel() * ids.numel() * math.prod(shape)
+    if ids.dim() == 1 and total > _DRAW_BLOCK:
+        return _uniform_blocks(key, ids, shape)
     return uniform(owned_keys(key, ids), shape)
 
 
-# Values per block of owned_uniform_rows: its int64 threefry temporaries
+# Values per block of a large owned draw: its int64 threefry temporaries
 # stay near 512 MB each.
 _DRAW_BLOCK = 1 << 26
 
 
-def owned_uniform_rows(key: torch.Tensor, rows: int,
-                       width: int) -> torch.Tensor:
-    """float32 ``[rows, width]``: :func:`owned_uniform` over ``arange(rows)``
-    with draw shape ``(width,)``, generated in row blocks of about
-    ``_DRAW_BLOCK`` values.  Row i is node i's stream whatever the
-    blocking, so the result is the same as one call's."""
-    out = torch.empty((rows, width), dtype=torch.float32, device=key.device)
-    step = max(1, _DRAW_BLOCK // max(width, 1))
+def _uniform_blocks(key: torch.Tensor, ids: torch.Tensor,
+                    shape: tuple) -> torch.Tensor:
+    """:func:`owned_uniform` in row blocks of about ``_DRAW_BLOCK`` values
+    counted over the whole key batch.  Row j is node ids[j]'s stream
+    whatever the blocking, so the result is the same as one draw's."""
+    batch = tuple(key.shape[:-1])
+    rows = ids.shape[0]
+    step = max(1, _DRAW_BLOCK // max(math.prod(batch + shape), 1))
+    out = torch.empty((*batch, rows, *shape), dtype=torch.float32,
+                      device=key.device)
     for start in range(0, rows, step):
         stop = min(rows, start + step)
-        ids = torch.arange(start, stop, dtype=torch.int32, device=key.device)
-        out[start:stop] = owned_uniform(key, ids, (width,))
+        out.narrow(len(batch), start, stop - start).copy_(
+            uniform(owned_keys(key, ids[start:stop]), shape))
     return out
+
+
+def owned_uniform_rows(key: torch.Tensor, rows: int,
+                       shape) -> torch.Tensor:
+    """float32 ``[*B, rows, *shape]``: :func:`owned_uniform` over
+    ``arange(rows)`` with draw shape ``shape`` (an int is ``(shape,)``),
+    in row blocks where it is large."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    ids = torch.arange(rows, dtype=torch.int32, device=key.device)
+    return owned_uniform(key, ids, shape)
 
 
 def owned_randint(key: torch.Tensor, ids: torch.Tensor, shape: tuple,
                   minval, maxval) -> torch.Tensor:
-    """int32 ``[*ids.shape, *shape]`` uniform integers in [minval, maxval)."""
+    """int32 ``[*B, *ids.shape, *shape]`` uniform integers in [minval,
+    maxval) for a key batch ``[*B, 2]``."""
     return randint(owned_keys(key, ids), shape, minval, maxval)
 
 
@@ -139,35 +164,56 @@ def bernoulli_mask(key: torch.Tensor, shape, p_success) -> torch.Tensor:
 def poissonized_arrivals_owned(key: torch.Tensor, ids: torch.Tensor,
                                lam: torch.Tensor) -> torch.Tensor:
     """bool per owned receiver: >= 1 arrival under Poisson(``lam``), with
-    ``lam`` float32 already cut to the owned rows (``lam.shape`` begins
-    with ``ids.shape``)."""
-    shape = tuple(lam.shape[ids.dim():])
+    ``lam`` float32 already cut to the owned rows (``lam.shape`` is the
+    key batch's ``B``, then ``ids.shape``, then the draw's shape)."""
+    shape = tuple(lam.shape[key.dim() - 1 + ids.dim():])
     return owned_uniform(key, ids, shape) < -torch.expm1(-lam)
 
 
 def poissonized_arrivals(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
-    """:func:`poissonized_arrivals_owned` over ``arange(lam.shape[0])``."""
-    ids = torch.arange(lam.shape[0], dtype=torch.int32, device=key.device)
+    """:func:`poissonized_arrivals_owned` over the ``arange`` of the
+    first axis of ``lam`` after the key batch's."""
+    n = lam.shape[key.dim() - 1]
+    ids = torch.arange(n, dtype=torch.int32, device=key.device)
     return poissonized_arrivals_owned(key, ids, lam)
 
 
-def arrival_rate(s_total: torch.Tensor, senders: torch.Tensor, fanout: int,
-                 loss: float, n: int) -> torch.Tensor:
+def _fanout_keep(fanout, loss, device, trailing: int):
+    """The factors ``fanout`` and ``1 - loss`` of an arrival rate, as
+    float32: a plain run's Python values fold on the host (``1 - loss``
+    in float64, rounded once), a sweep's ``[U]`` knobs become float32
+    tensor arithmetic shaped to the ``[U, ...]`` plane."""
+    if is_knob(fanout):
+        fan = lift(fanout.to(device=device, dtype=torch.float32), trailing)
+    else:
+        fan = _f32(fanout, device)
+    if is_knob(loss):
+        keep = 1.0 - lift(loss.to(device=device, dtype=torch.float32),
+                          trailing)
+    else:
+        keep = _f32(1.0 - loss, device)
+    return fan, keep
+
+
+def arrival_rate(s_total: torch.Tensor, senders: torch.Tensor, fanout,
+                 loss, n: int) -> torch.Tensor:
     """float32 Poisson intensity per receiver: the other senders' copies,
     ``(s_total - own) * fanout * (1 - loss) / (n - 1)``, in the
-    reference's float32 operation order."""
+    reference's float32 operation order.  ``senders`` is ``[*B, n]``;
+    ``fanout`` and ``loss`` are Python numbers or ``[*B]`` knobs."""
     dev = senders.device
-    lam = (s_total - senders.to(torch.float32)) * _f32(fanout, dev)
-    lam = lam * _f32(1.0 - loss, dev)
+    fan, keep = _fanout_keep(fanout, loss, dev, 1)
+    lam = (s_total - senders.to(torch.float32)) * fan
+    lam = lam * keep
     return lam / _f32(max(n - 1, 1), dev)
 
 
-def aggregate_arrivals(key: torch.Tensor, senders: torch.Tensor, fanout: int,
-                       loss: float, n: int,
+def aggregate_arrivals(key: torch.Tensor, senders: torch.Tensor, fanout,
+                       loss, n: int,
                        alive: torch.Tensor = None) -> torch.Tensor:
-    """bool[n]: received >= 1 copy under Poissonized push-gossip delivery
-    (S senders, each pushing ``fanout`` copies to uniform non-self
-    targets, each copy surviving loss independently), so
+    """bool[*B, n]: received >= 1 copy under Poissonized push-gossip
+    delivery (S senders, each pushing ``fanout`` copies to uniform
+    non-self targets, each copy surviving loss independently), so
     P(>= 1 copy) = 1 - exp(-lambda).  A sender's own copies are not in
     its lambda.
 
@@ -175,14 +221,15 @@ def aggregate_arrivals(key: torch.Tensor, senders: torch.Tensor, fanout: int,
     :func:`sample_alive_peers`: the copies spread over the other A-1
     alive nodes (the float32 denominator ``max(A - 1, 1)``) and dead
     receivers hear nothing."""
-    s_total = torch.sum(senders, dtype=torch.float32)
+    s_total = torch.sum(senders, dim=-1, keepdim=True, dtype=torch.float32)
     if alive is None:
         return poissonized_arrivals(
             key, arrival_rate(s_total, senders, fanout, loss, n)
         )
     dev = senders.device
-    lam = (s_total - senders.to(torch.float32)) * _f32(fanout, dev)
-    lam = lam * _f32(1.0 - loss, dev)
-    lam = lam / torch.clamp(torch.sum(alive, dtype=torch.float32) - 1.0,
-                            min=1.0)
+    fan, keep = _fanout_keep(fanout, loss, dev, 1)
+    lam = (s_total - senders.to(torch.float32)) * fan
+    lam = lam * keep
+    lam = lam / torch.clamp(torch.sum(alive, dim=-1, keepdim=True,
+                                      dtype=torch.float32) - 1.0, min=1.0)
     return poissonized_arrivals(key, lam) & alive

@@ -160,7 +160,11 @@ def _poisson_knuth(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     The reference stops at the first iteration where no lane counts; a
     lane's sum only falls, so iterations past that change nothing, and
     the port runs them ``POISSON_BLOCK`` at a time with one host read a
-    block."""
+    block.  For a key batch ``[*B, 2]`` (``lam`` ``[*B, ...]``) the loop
+    runs while any lane of any universe counts, as the reference's
+    batched loop does: a universe whose lanes are all done gains nothing
+    from the extra iterations."""
+    shape = tuple(lam.shape[key.dim() - 1:])
     k = torch.zeros(lam.shape, dtype=torch.int32, device=lam.device)
     log_prod = torch.zeros(lam.shape, dtype=torch.float32, device=lam.device)
     neg_lam = -lam
@@ -170,7 +174,7 @@ def _poisson_knuth(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
         for _ in range(POISSON_BLOCK):
             rng, sub = split(rng).unbind(-2)
             subkeys.append(sub)
-        logs = xla_math.log(uniform(torch.stack(subkeys), tuple(lam.shape)))
+        logs = xla_math.log(uniform(torch.stack(subkeys), shape))
         for i in range(POISSON_BLOCK):
             k = k + (log_prod > neg_lam).to(torch.int32)
             log_prod = log_prod + logs[i]
@@ -183,7 +187,9 @@ def _poisson_rejection(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     ``_poisson_rejection``) with XLA's fused multiply-adds.  A lane keeps
     the ``k`` of its LAST accepting iteration, so the iteration count
     matters: the loop reads its predicate every iteration, as the
-    reference's does.  ``lgamma`` is PyTorch's."""
+    reference's does.  ``lgamma`` is PyTorch's.  For a key batch
+    ``[*B, 2]`` a universe whose lanes have all accepted stops updating,
+    as in the reference's batched loop, while the others go on."""
     f32 = torch.float32
 
     def c(v):
@@ -196,7 +202,9 @@ def _poisson_rejection(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     v_r = c(0.9277) - c(3.6224) / (b - c(2.0))
     k_out = torch.full(lam.shape, -1.0, dtype=f32, device=lam.device)
     accepted = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
-    shape = tuple(lam.shape)
+    nb = key.dim() - 1
+    shape = tuple(lam.shape[nb:])
+    lane_dims = tuple(range(nb, lam.dim()))
     while True:
         keys = split(key, 3)
         key, k0, k1 = keys.unbind(-2)
@@ -210,6 +218,9 @@ def _poisson_rejection(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
         accept1 = (u_shifted >= c(0.07)) & (v <= v_r)
         reject = (kk < 0) | ((u_shifted < c(0.013)) & (v > u_shifted))
         accept = accept1 | (~reject & (s <= t))
+        if nb:
+            open_u = torch.any(~accepted, dim=lane_dims, keepdim=True)
+            accept = accept & open_u
         k_out = torch.where(accept, kk, k_out)
         accepted = accepted | accept
         if not host_cond((~accepted).any()):

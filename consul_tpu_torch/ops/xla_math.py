@@ -218,3 +218,17 @@ def pow(x: torch.Tensor, exponent: float) -> torch.Tensor:  # noqa: A001
     if exponent == -1.0:
         return _c(1.0, x) / x
     return torch.pow(x.to(torch.float64), float(exponent)).to(_F32)
+
+
+def integer_pow(x, y: int) -> torch.Tensor:
+    """``x ** y`` for a static int ``y >= 0`` in the order of XLA's
+    ``integer_pow``: square-and-multiply from the low bit, so
+    ``x**3 = x * (x*x)``."""
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return torch.ones_like(x) if acc is None else acc

@@ -20,7 +20,11 @@ with the ring transport beside the unsharded runs: the sparse model at
 streamcast slice: the reference's 1M sustained-load study (4-chunk
 events, 8 slots, aggregate, 100 ticks) with the uniform and the pipeline
 policy, and ``stream100k``'s edges configuration at 1M nodes over 8
-logical shards with the ring transport (60 ticks).
+logical shards with the ring transport (60 ticks); then bench.py's 1M
+sustained-load curve (paced, W=7, budget 4, 99%) for the uniform and the
+pipeline policy, as one plain run at rate 0.3 and as the U = 4 sweep over
+its four rates (30 ticks each), so that a batched tick's device time and
+launches stand beside one plain tick's.
 
 Each study runs once to warm up, once timed over all its ticks without
 the profiler (rounds/s), and over a shorter window twice: once timed
@@ -39,6 +43,7 @@ CUDA device; the first line names it with its power limit.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import subprocess
 import time
@@ -59,6 +64,11 @@ GEO_STEPS = 160
 SPARSE_COLD_STEPS = 30   # bench.py's cold run at 100k
 STREAM_STEPS = 100       # the reference's 1M sustained-load study
 STREAM_SHARD_STEPS = 60
+CURVE_RATES = (0.1, 0.3, 0.6, 1.2)  # bench.py's _streaming_curve
+CURVE_DEPTH = 150                   # sizes the schedule, as bench.py does
+CURVE_STEPS = 30
+CURVE_WORK = dict(window=7, chunks=4, fanout=4, chunk_budget=4,
+                  done_frac=0.99, arrivals="paced")
 
 # Kernel-name fragments -> the layer that launches them.  The threefry
 # draws are elementwise int64 arithmetic; everything elementwise that is
@@ -193,12 +203,13 @@ def main() -> int:
     from consul_tpu_torch.models.membership_sparse import converged_state
     from consul_tpu_torch.ops import PRNGKey
     from consul_tpu_torch.protocol import LAN, WAN
-    from consul_tpu_torch.sim import sparse_membership_scan
+    from consul_tpu_torch.sim import run_sweep, sparse_membership_scan
     from consul_tpu_torch.sim.scenarios import (
         degraded1m_environment,
         geo_ab_config,
         stream100k_config,
     )
+    from consul_tpu_torch.sweep.presets import stream_load_curve
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -228,6 +239,10 @@ def main() -> int:
         rate=0.1, names=16, loss=0.05, done_frac=0.999,
         delivery="aggregate", policy=p) for p in ("uniform", "pipeline")}
 
+    curve = {p: stream_load_curve(n=N_NODES, rates=CURVE_RATES,
+                                  steps=CURVE_DEPTH, policy=p, **CURVE_WORK)
+             for p in ("uniform", "pipeline")}
+
     latency, _ = derive_wan_latency(8, 5, tick_ms=LAN.gossip_interval_ms,
                                     seed=0, rounds=400, wan_window=8,
                                     device=dev)
@@ -238,6 +253,12 @@ def main() -> int:
     def study(entry, cfg, **kw):
         def run(steps):
             entry(cfg, steps, warmup=False, **kw)
+        return run
+
+    def swept(uni):
+        def run(steps):
+            run_sweep(dataclasses.replace(uni, steps=steps), warmup=False,
+                      device=dev)
         return run
 
     # The steady state: bench.py's converged state after 8 warm-up ticks.
@@ -299,6 +320,14 @@ def main() -> int:
                                                  devices=8), **ring8),
          STREAM_SHARD_STEPS, MEMBERSHIP_WINDOW),
     )
+    for p, uni in curve.items():
+        studies += (
+            (f"curve_1m_{p}_rate0.3",
+             study(run_streamcast, dataclasses.replace(uni.cfg, rate=0.3)),
+             CURVE_STEPS, MEMBERSHIP_WINDOW),
+            (f"curve_1m_{p}_sweep_u4", swept(uni), CURVE_STEPS,
+             MEMBERSHIP_WINDOW),
+        )
     for label, run, ticks, window in studies:
         print(json.dumps(profile_study(run, label, ticks, window)),
               flush=True)

@@ -2,7 +2,9 @@
 
 The port of the broadcast, SWIM, Lifeguard, membership (dense and
 sparse, unsharded and over D logical shards), multi-DC, geo and
-streamcast paths of ``consul_tpu/sim/engine.py``.  Round
+streamcast paths of ``consul_tpu/sim/engine.py``, and of its universe
+sweeps (:func:`run_sweep`: the broadcast, SWIM, Lifeguard, streamcast
+and geo scans run U universes at once over a leading universe axis).  Round
 keys are counter-based as in the reference: round ``t`` draws from
 ``fold_in(scan_key, t)``, so trajectories are prefix-stable in ``steps``
 and the sharded twin stays bit-equal at D == 1.  ``lax.scan`` becomes a
@@ -67,13 +69,27 @@ from consul_tpu_torch.sim.metrics import (
 )
 
 
+def _per_tick(key: torch.Tensor, steps: int, *shape, dtype=torch.int32):
+    """A scan output ``[*B, steps, *shape]`` for a key batch ``[*B, 2]``
+    (``B`` empty for a plain run, ``[U]`` for a sweep)."""
+    return torch.empty((*key.shape[:-1], steps, *shape), dtype=dtype,
+                       device=key.device)
+
+
+def _count_nodes(x: torch.Tensor) -> torch.Tensor:
+    """int32 sum over the node axis, the last: one count per universe."""
+    return torch.sum(x, dim=-1, dtype=torch.int32)
+
+
 def broadcast_scan(state, key: torch.Tensor, cfg: BroadcastConfig,
                    steps: int):
-    """Run ``steps`` gossip ticks; returns (final_state, infected[steps])."""
-    infected = torch.empty(steps, dtype=torch.int32, device=key.device)
+    """Run ``steps`` gossip ticks; returns (final_state, infected[steps]).
+    A key batch ``[U, 2]`` over a stacked ``[U, ...]`` state runs U
+    universes in each tick (the sweep plane); outputs gain a leading U."""
+    infected = _per_tick(key, steps)
     for t in range(steps):
         state = broadcast_round(state, fold_in(key, t), cfg)
-        infected[t] = torch.sum(state.knows, dtype=torch.int32)
+        infected[..., t] = _count_nodes(state.knows)
     return state, infected
 
 
@@ -95,35 +111,33 @@ def multidc_scan(state, key: torch.Tensor, cfg: MultiDCConfig, steps: int):
 def geo_scan(state, key: torch.Tensor, cfg, steps: int):
     """Run ``steps`` LAN ticks of the geo/WAN plane (``geo.model.geo_round``);
     returns ``(final_state, outs)`` with ``outs`` the per-tick
-    ``(per_segment, offered, admitted, queued, overflow, wasted)``."""
+    ``(per_segment, offered, admitted, queued, overflow, wasted)``.
+    Batches over a key batch as :func:`broadcast_scan` does."""
     # Imported at call time: geo.model depends on sim.faults, whose
     # package imports this module.
     from consul_tpu_torch.geo.model import geo_constants, geo_round
 
-    dev = key.device
-    consts = geo_constants(cfg, dev)
+    consts = geo_constants(cfg, key.device)
     S, S2 = cfg.segments, cfg.n_links
-    outs = (
-        torch.empty((steps, S), dtype=torch.int32, device=dev),
-        *(torch.empty((steps, S2), dtype=torch.int32, device=dev)
-          for _ in range(4)),
-        torch.empty(steps, dtype=torch.int32, device=dev),
-    )
+    outs = (_per_tick(key, steps, S),
+            *(_per_tick(key, steps, S2) for _ in range(4)),
+            _per_tick(key, steps))
+    nb = key.dim() - 1
     for t in range(steps):
         state, out = geo_round(state, fold_in(key, t), cfg, consts)
         for o, v in zip(outs, out):
-            o[t] = v
+            o.select(nb, t).copy_(v)
     return state, outs
 
 
-def streamcast_outputs(cfg, steps: int, device) -> tuple:
+def streamcast_outputs(cfg, steps: int, device, batch: tuple = ()) -> tuple:
     """Preallocated per-tick outputs of a streamcast scan: the window
-    snapshots ``[steps, W]`` (slot_event, slot_birth, done_count) and the
-    cumulative counters ``[steps]`` (offered, delivered, quiesced,
-    window_overflow, coalesced) and ``sent``, all int32."""
+    snapshots ``[*batch, steps, W]`` (slot_event, slot_birth, done_count)
+    and the cumulative counters ``[*batch, steps]`` (offered, delivered,
+    quiesced, window_overflow, coalesced) and ``sent``, all int32."""
     return tuple(
-        torch.empty((steps, cfg.window) if i < 3 else (steps,),
-                    dtype=torch.int32, device=device)
+        torch.empty((*batch, steps, cfg.window) if i < 3
+                    else (*batch, steps), dtype=torch.int32, device=device)
         for i in range(9)
     )
 
@@ -133,7 +147,8 @@ def streamcast_scan(state, key: torch.Tensor, cfg, steps: int):
     ``(final_state, outs)`` with ``outs`` the per-tick window snapshots
     and counters (:func:`streamcast_outputs`).  The arrival schedule comes
     from ``fold_in(key, _SCHED_SALT)``, round ``t`` from
-    ``fold_in(key, t)``."""
+    ``fold_in(key, t)``.  Batches over a key batch as
+    :func:`broadcast_scan` does."""
     # Imported at call time: streamcast.model depends on sim.faults,
     # whose package imports this module.
     from consul_tpu_torch.streamcast.model import (
@@ -143,29 +158,30 @@ def streamcast_scan(state, key: torch.Tensor, cfg, steps: int):
     )
 
     sched = arrival_arrays(cfg, fold_in(key, _SCHED_SALT))
-    outs = streamcast_outputs(cfg, steps, key.device)
+    batch = tuple(key.shape[:-1])
+    outs = streamcast_outputs(cfg, steps, key.device, batch)
     for t in range(steps):
         state, out = streamcast_round(state, fold_in(key, t), cfg, sched)
         for o, v in zip(outs, out):
-            o[t] = v
+            o.select(len(batch), t).copy_(v)
     return state, outs
 
 
 def _count(view: torch.Tensor, value: int) -> torch.Tensor:
-    return torch.sum(view == value, dtype=torch.int32)
+    return _count_nodes(view == value)
 
 
 def swim_scan(state, key: torch.Tensor, cfg: SwimConfig, steps: int):
     """Run ``steps`` ticks; returns (final_state, (suspecting[steps],
-    dead_known[steps]))."""
-    dev = key.device
-    consts = swim_constants(cfg, dev)
-    suspecting = torch.empty(steps, dtype=torch.int32, device=dev)
-    dead_known = torch.empty(steps, dtype=torch.int32, device=dev)
+    dead_known[steps])).  Batches over a key batch as
+    :func:`broadcast_scan` does."""
+    consts = swim_constants(cfg, key.device)
+    suspecting = _per_tick(key, steps)
+    dead_known = _per_tick(key, steps)
     for t in range(steps):
         state = swim_round(state, fold_in(key, t), cfg, consts)
-        suspecting[t] = _count(state.view, VIEW_SUSPECT)
-        dead_known[t] = _count(state.view, VIEW_DEAD)
+        suspecting[..., t] = _count(state.view, VIEW_SUSPECT)
+        dead_known[..., t] = _count(state.view, VIEW_DEAD)
     return state, (suspecting, dead_known)
 
 
@@ -185,24 +201,20 @@ def lifeguard_scan(state, key: torch.Tensor, cfg, steps: int):
         mean_f32,
     )
 
-    dev = key.device
-    consts = lifeguard_constants(cfg, dev)
-    outs = tuple(torch.empty(steps, dtype=torch.int32, device=dev)
-                 for _ in range(4))
+    consts = lifeguard_constants(cfg, key.device)
+    outs = tuple(_per_tick(key, steps) for _ in range(4))
     suspecting, dead_known, fp_events, refutes = outs
-    mean_awareness = torch.empty(steps, dtype=torch.float32, device=dev)
+    mean_awareness = _per_tick(key, steps, dtype=torch.float32)
     for t in range(steps):
         nxt = lifeguard_round(state, fold_in(key, t), cfg, consts)
-        newly_suspect = torch.sum(
-            (nxt.view == VIEW_SUSPECT) & (state.view != VIEW_SUSPECT),
-            dtype=torch.int32,
-        )
+        newly_suspect = _count_nodes(
+            (nxt.view == VIEW_SUSPECT) & (state.view != VIEW_SUSPECT))
         subject_live = (state.tick < cfg.fail_at_tick) | cfg.subject_alive
-        suspecting[t] = _count(nxt.view, VIEW_SUSPECT)
-        dead_known[t] = _count(nxt.view, VIEW_DEAD)
-        fp_events[t] = torch.where(subject_live, newly_suspect, 0)
-        refutes[t] = nxt.subject_inc - state.subject_inc
-        mean_awareness[t] = mean_f32(nxt.awareness)
+        suspecting[..., t] = _count(nxt.view, VIEW_SUSPECT)
+        dead_known[..., t] = _count(nxt.view, VIEW_DEAD)
+        fp_events[..., t] = torch.where(subject_live, newly_suspect, 0)
+        refutes[..., t] = nxt.subject_inc - state.subject_inc
+        mean_awareness[..., t] = mean_f32(nxt.awareness)
         state = nxt
     return state, (*outs, mean_awareness)
 
@@ -257,6 +269,8 @@ def _timed(make_state, scan_fn, key, device, warmup: bool):
     of the per-tick counters.  With ``warmup`` the study runs once outside
     the timed region, so the wall time is steady-state."""
     def host(out):
+        if isinstance(out, torch.Tensor):
+            out = (out,)
         return tuple(o.cpu().numpy() for o in out)
 
     if warmup:
@@ -665,3 +679,40 @@ def run_streamcast(
         shard_overflow=int(outs[9][-1]) if mesh is not None else None,
         device=_device_name(dev),
     )
+
+
+def run_sweep(universe, warmup: bool = True, telemetry: bool = False,
+              mesh=None, exchange: str = "alltoall", device=None):
+    """Run a universe sweep (``consul_tpu_torch.sweep``): one batched
+    program advances all U universes (stacked ``[U, ...]`` state,
+    per-universe keys, knob values as ``[U]`` tensors) and the stacked
+    per-tick counters reduce on the host into a ``SweepReport`` (FP rate,
+    flaps, detection-latency quantiles, throughput, Pareto frontier).
+
+    The wall time is the host clock around the batched scan, fenced by
+    ``torch.cuda.synchronize()`` and the copy of the outputs to the host;
+    with ``warmup`` the sweep runs once untimed first.  Runs on CUDA
+    unless ``device`` says otherwise.  ``mesh=``/``exchange=`` (the
+    sweep x shard composition) and ``telemetry=`` wait for later slices
+    and raise."""
+    from consul_tpu_torch.sweep.frontier import summarize_sweep
+    from consul_tpu_torch.sweep.universe import make_sweep, stacked_init
+
+    sweep = make_sweep(universe.entrypoint, universe.U, telemetry, mesh,
+                       exchange)
+    dev = resolve_device(device)
+    keys = universe.keys(dev)
+    values = universe.knob_arrays(dev)
+
+    def scan(state, k):
+        return sweep(state, k, values, universe.cfg, universe.steps,
+                     universe.knobs, universe.track)
+
+    _, outs, wall = _timed(lambda: stacked_init(universe, dev), scan, keys,
+                           dev, warmup)
+    report = summarize_sweep(
+        universe, outs[0] if universe.entrypoint == "broadcast" else outs,
+        wall)
+    report.device = _device_name(dev)
+    report.outputs = outs
+    return report

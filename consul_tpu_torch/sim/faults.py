@@ -16,6 +16,12 @@ without leaving the device.
 
 Independent drop processes combine as ``1 - prod(1 - p_i)`` in the
 reference's float32 operation order.
+
+A universe sweep may set a severity (``LossRamp.scale``,
+``DegradedSet.drop/late/frac``, ``Partition.severity``,
+``ChurnWindow.p_offline``, ``BandwidthSchedule.scale``) to a ``[U]``
+tensor; the evaluators then return one value (or plane) per universe,
+``[U, ...]``, with ``tick`` ``[U]``.
 """
 
 from __future__ import annotations
@@ -26,11 +32,21 @@ import numpy as np
 import torch
 
 from consul_tpu_torch.ops import PRNGKey, owned_uniform, uniform
+from consul_tpu_torch.ops.knobs import is_knob, lift
 
 
 def _static_zero(x) -> bool:
-    """Known to contribute nothing, so the evaluators skip it."""
-    return x <= 0.0
+    """Known before the run to contribute nothing, so the evaluators skip
+    it: a Python number <= 0.  A swept value is never skipped, even at
+    0.0: the reference skips only its constants, and its traced zero
+    takes the arithmetic path."""
+    return not is_knob(x) and x <= 0.0
+
+
+def _per_node(x):
+    """A per-universe value ``[*B]`` as a column against ``[*B, n]``; a
+    Python number as it is."""
+    return lift(x, 1) if is_knob(x) else x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +65,7 @@ class LossRamp:
         for _, p in self.pieces:
             if not 0.0 <= p <= 1.0:
                 raise ValueError(f"loss {p} outside [0, 1]")
-        if self.scale < 0.0:
+        if not is_knob(self.scale) and self.scale < 0.0:
             raise ValueError(f"scale {self.scale} must be >= 0")
 
 
@@ -107,7 +123,7 @@ class BandwidthSchedule:
         for _, cap in self.pieces:
             if cap < 0:
                 raise ValueError(f"capacity {cap} must be >= 0 bytes/tick")
-        if self.scale < 0.0:
+        if not is_knob(self.scale) and self.scale < 0.0:
             raise ValueError(f"scale {self.scale} must be >= 0")
 
 
@@ -140,22 +156,27 @@ class FaultSchedule:
 # ---------------------------------------------------------------------------
 
 
-def _ramp_losses(ramp: LossRamp) -> list[float]:
+def _ramp_losses(ramp: LossRamp, device):
     """Each piece's loss as the reference's float32
-    ``clip(loss * scale, 0, 1)``."""
+    ``clip(loss * scale, 0, 1)``: Python floats for a constant scale, a
+    ``[*B, P]`` tensor for a swept one."""
     pieces = np.asarray([p for _, p in ramp.pieces], np.float32)
+    if is_knob(ramp.scale):
+        base = torch.from_numpy(pieces).to(device)
+        return torch.clamp(base * ramp.scale[..., None], 0.0, 1.0).unbind(-1)
     scaled = np.clip(pieces * np.float32(ramp.scale), 0.0, 1.0)
     return [float(x) for x in scaled.astype(np.float32)]
 
 
 def extra_loss_at(sched: FaultSchedule, tick: torch.Tensor) -> torch.Tensor:
-    """float32 scalar: extra loss from all ramps at ``tick``, combined
+    """float32 ``[*B]``: extra loss from all ramps at ``tick``, combined
     as independent drop processes.  The piece in force is the last one
     whose start is <= tick (the reference's right-sided searchsorted)."""
     keep = torch.ones((), dtype=torch.float32, device=tick.device)
     for ramp in sched.ramps:
         loss = torch.zeros((), dtype=torch.float32, device=tick.device)
-        for (start, _), value in zip(ramp.pieces, _ramp_losses(ramp)):
+        for (start, _), value in zip(ramp.pieces,
+                                     _ramp_losses(ramp, tick.device)):
             loss = torch.where(tick >= start, value, loss)
         keep = keep * (1.0 - loss)
     return 1.0 - keep
@@ -171,6 +192,8 @@ def _members(d: DegradedSet, n: int, device) -> torch.Tensor:
     evaluator shares: ``jax.random.bernoulli(PRNGKey(seed), frac, (n,))``,
     i.e. a float32 uniform below float32 ``frac``."""
     u = uniform(PRNGKey(d.seed, device=device), (n,))
+    if is_knob(d.frac):
+        return u < lift(d.frac, 1)
     return u < torch.full((), d.frac, dtype=torch.float32, device=device)
 
 
@@ -180,7 +203,8 @@ def degraded_send_ok(sched: FaultSchedule, n: int, device) -> torch.Tensor:
     for d in sched.degraded:
         if _static_zero(d.frac):
             continue
-        ok = ok * torch.where(_members(d, n, device), 1.0 - d.drop, 1.0)
+        ok = ok * torch.where(_members(d, n, device),
+                              _per_node(1.0 - d.drop), 1.0)
     return ok
 
 
@@ -201,7 +225,8 @@ def degraded_late(sched: FaultSchedule, n: int, device) -> torch.Tensor:
     for d in sched.degraded:
         if _static_zero(d.frac) or _static_zero(d.late):
             continue
-        keep = keep * torch.where(_members(d, n, device), 1.0 - d.late, 1.0)
+        keep = keep * torch.where(_members(d, n, device),
+                                  _per_node(1.0 - d.late), 1.0)
     return 1.0 - keep
 
 
@@ -220,34 +245,34 @@ def segment_bounds(partition: Partition, n: int) -> list[int]:
 
 def partition_severity_at(partition: Partition,
                           tick: torch.Tensor) -> torch.Tensor:
-    """float32 scalar: the partition's severity at ``tick`` (0 outside
+    """float32 ``[*B]``: the partition's severity at ``tick`` (0 outside
     its window)."""
     active = (tick >= partition.start) & (tick < partition.heal)
-    return torch.where(
-        active,
-        torch.full((), partition.severity, dtype=torch.float32,
-                   device=tick.device),
-        0.0,
-    )
+    sev = partition.severity
+    if not is_knob(sev):
+        sev = torch.full((), sev, dtype=torch.float32, device=tick.device)
+    return torch.where(active, sev, 0.0)
 
 
 def edge_block_prob(sched: FaultSchedule, tick: torch.Tensor,
                     src: torch.Tensor, dst: torch.Tensor,
                     n: int) -> torch.Tensor:
     """Per-edge drop probability from all partitions for (src, dst)
-    index tensors, which broadcast against each other."""
+    index tensors, which broadcast against each other; in a sweep
+    (``tick`` ``[*B]``) their broadcast shape starts with ``B``."""
     shape = torch.broadcast_shapes(src.shape, dst.shape)
     keep = torch.ones(shape, dtype=torch.float32, device=tick.device)
     for part in sched.partitions:
         seg = segment_ids(part, n, tick.device)
         cross = seg[src.long()] != seg[dst.long()]
         sev = partition_severity_at(part, tick)
+        sev = lift(sev, cross.dim() - sev.dim())
         keep = keep * torch.where(cross, 1.0 - sev, 1.0)
     return 1.0 - keep
 
 
 def offline_prob_at(sched: FaultSchedule, tick: torch.Tensor) -> torch.Tensor:
-    """float32 scalar: per-node offline probability at ``tick``."""
+    """float32 ``[*B]``: per-node offline probability at ``tick``."""
     keep = torch.ones((), dtype=torch.float32, device=tick.device)
     for w in sched.churn:
         active = (tick >= w.start) & (tick < w.end)
@@ -260,9 +285,10 @@ def online_mask(sched: FaultSchedule, key: torch.Tensor, tick: torch.Tensor,
     """bool[n]: nodes participating this tick.  The churn coin rides the
     owned per-(round, node) streams: node i's depends on ``(key, i)``."""
     if not sched.churn:
-        return torch.ones(n, dtype=torch.bool, device=tick.device)
+        return torch.ones((*tick.shape, n), dtype=torch.bool,
+                          device=tick.device)
     ids = torch.arange(n, dtype=torch.int32, device=tick.device)
-    return owned_uniform(key, ids) >= offline_prob_at(sched, tick)
+    return owned_uniform(key, ids) >= offline_prob_at(sched, tick)[..., None]
 
 
 def _link_mask(bs: BandwidthSchedule, segments: int,
@@ -285,22 +311,27 @@ def _link_mask(bs: BandwidthSchedule, segments: int,
 
 def link_capacity_at(sched: FaultSchedule, tick: torch.Tensor, segments: int,
                      base: float) -> torch.Tensor:
-    """float32[S, S]: per-directed-link capacity in bytes/tick at ``tick``.
-    ``base`` is the static per-link ceiling; schedules only tighten it.
-    The piece in force is the last whose start is <= tick (the reference's
-    right-sided searchsorted; before the first piece the base applies),
-    scaled in float32 by ``scale``; schedules combine by per-link minimum
-    and the result is clipped to [0, base]."""
+    """float32[*B, S, S]: per-directed-link capacity in bytes/tick at
+    ``tick``.  ``base`` is the static per-link ceiling; schedules only
+    tighten it.  The piece in force is the last whose start is <= tick
+    (the reference's right-sided searchsorted; before the first piece the
+    base applies), scaled in float32 by ``scale`` (a swept ``[*B]``
+    scale scales each universe's pieces on the device); schedules
+    combine by per-link minimum and the result is clipped to [0, base]."""
     dev = tick.device
     base_t = torch.full((), base, dtype=torch.float32, device=dev)
-    cap = torch.full((segments, segments), base, dtype=torch.float32,
-                     device=dev)
+    cap = torch.full((*tick.shape, segments, segments), base,
+                     dtype=torch.float32, device=dev)
     for bs in sched.bandwidth:
-        vals = (np.asarray([c for _, c in bs.pieces], np.float32)
-                * np.float32(bs.scale))
+        pieces = np.asarray([c for _, c in bs.pieces], np.float32)
+        if is_knob(bs.scale):
+            vals = (torch.from_numpy(pieces).to(dev)
+                    * bs.scale[..., None]).unbind(-1)
+        else:
+            vals = (pieces * np.float32(bs.scale)).tolist()
         val = base_t
-        for (start, _), value in zip(bs.pieces, vals.tolist()):
+        for (start, _), value in zip(bs.pieces, vals):
             val = torch.where(tick >= start, value, val)
         mask = _link_mask(bs, segments, dev)
-        cap = torch.where(mask, torch.minimum(cap, val), cap)
+        cap = torch.where(mask, torch.minimum(cap, val[..., None, None]), cap)
     return torch.clamp(cap, min=0.0, max=float(np.float32(base)))

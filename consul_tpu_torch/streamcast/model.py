@@ -29,7 +29,11 @@ A round is built from stages (:func:`admit_stage`,
 :func:`service_stage`, the delivery, :func:`finish_stage`) over node
 planes of any leading shape, so the sharded twin
 (``parallel/shard.py``) runs them on ``[D, blk, ...]`` planes with its
-own routed delivery.
+own routed delivery.  A sweep runs U universes at once: a leading
+universe axis on every plane (window ``[U, W]``, nodes ``[U, n, W,
+...]``, schedule ``[U, K]``, counters and ``tick`` ``[U]``), with
+``loss``, ``rate``, ``chunk_budget``, ``size_tail``, ``hotspot`` and
+(aggregate) ``fanout`` as ``[U]`` knobs.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from consul_tpu_torch.ops import (
     split,
     xla_math,
 )
+from consul_tpu_torch.ops.knobs import is_knob, lift
 from consul_tpu_torch.protocol import LAN, GossipProfile, retransmit_limit
 from consul_tpu_torch.sim.faults import FaultSchedule, extra_loss_at
 from consul_tpu_torch.sim.load import (
@@ -60,6 +65,7 @@ from consul_tpu_torch.sim.load import (
     paced_ticks,
     rate_reciprocal,
     standing_backlog,
+    traced_rate,
 )
 from consul_tpu_torch.streamcast.window import admit, retire
 
@@ -140,7 +146,7 @@ class StreamcastConfig:
             raise ValueError(
                 f"chunks={self.chunks} and window={self.window} must be >= 1"
             )
-        if self.chunk_budget < 1:
+        if not is_knob(self.chunk_budget) and self.chunk_budget < 1:
             raise ValueError(f"chunk_budget={self.chunk_budget} must be >= 1")
         if self.policy not in POLICIES:
             raise ValueError(
@@ -155,12 +161,12 @@ class StreamcastConfig:
             )
         if self.backlog < 0:
             raise ValueError(f"backlog={self.backlog} must be >= 0")
-        if self.size_tail < 0.0:
+        if not is_knob(self.size_tail) and self.size_tail < 0.0:
             raise ValueError(
                 f"size_tail={self.size_tail} must be >= 0 (a Pareto tail "
                 "index; 0 disables heavy-tailed sizes)"
             )
-        if not 0.0 <= self.hotspot <= 1.0:
+        if not is_knob(self.hotspot) and not 0.0 <= self.hotspot <= 1.0:
             raise ValueError(f"hotspot={self.hotspot} outside [0, 1]")
         if not 0 <= self.hotspot_node < self.n:
             raise ValueError(
@@ -179,7 +185,7 @@ class StreamcastConfig:
         if self.schedule:
             self._check_schedule()
         else:
-            if self.rate <= 0.0:
+            if not is_knob(self.rate) and self.rate <= 0.0:
                 raise ValueError(
                     "pass exactly one arrival mode: schedule=(...) OR "
                     "rate= > 0"
@@ -197,7 +203,7 @@ class StreamcastConfig:
                 )
 
     def _check_schedule(self):
-        if self.rate:
+        if is_knob(self.rate) or self.rate:
             raise ValueError(
                 "pass exactly one arrival mode: schedule=(...) OR rate="
             )
@@ -210,8 +216,8 @@ class StreamcastConfig:
         adversarial = (
             ("backlog", self.backlog),
             ("arrivals", self.arrivals != "poisson"),
-            ("size_tail", self.size_tail),
-            ("hotspot", self.hotspot),
+            ("size_tail", is_knob(self.size_tail) or self.size_tail),
+            ("hotspot", is_knob(self.hotspot) or self.hotspot),
         )
         for knob, val in adversarial:
             if val:
@@ -305,19 +311,25 @@ def arrival_arrays(cfg: StreamcastConfig, key: torch.Tensor):
     Poisson stream drawn from ``key`` (gaps ``exponential / rate`` summed
     as XLA sums them, or the paced stagger; then backlog, origins with
     the hotspot, names and heavy-tailed sizes, each regime on its own
-    salted key)."""
+    salted key).  A key batch ``[U, 2]`` gives ``[U, K]`` schedules, one
+    per universe; a swept ``rate`` divides truly, as the reference's
+    traced program does."""
     dev = key.device
     k = cfg.k_events
+    batch = tuple(key.shape[:-1])
     if cfg.schedule:
         cols = np.asarray(
             [(*e[:3], e[3] if len(e) == 4 else cfg.chunks)
              for e in cfg.schedule], dtype=np.int32,
         )
         return tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev)
-                     for c in cols.T)
+                     .expand(*batch, k) for c in cols.T)
     k_gap, k_org, k_name = split(key, 3).unbind(-2)
     if cfg.arrivals == "paced":
         ev_tick = paced_ticks(k, cfg.rate, dev)
+    elif is_knob(cfg.rate):
+        gaps = exponential(k_gap, (k,)) / traced_rate(cfg.rate)
+        ev_tick = torch.floor(xla_math.cumsum(gaps)).to(_I32)
     else:
         recip = device_scalar(rate_reciprocal(cfg.rate), torch.float32, dev)
         gaps = exponential(k_gap, (k,)) * recip
@@ -329,29 +341,43 @@ def arrival_arrays(cfg: StreamcastConfig, key: torch.Tensor):
     if cfg.names > 0:
         ev_name = randint(k_name, (k,), 0, cfg.names)
     else:
-        ev_name = torch.full((k,), -1, dtype=_I32, device=dev)
+        ev_name = torch.full((*batch, k), -1, dtype=_I32, device=dev)
     ev_chunks = heavy_tail_sizes(fold_in(key, _SIZE_SALT), k, cfg.chunks,
                                  cfg.size_tail)
-    return ev_tick, ev_origin, ev_name, ev_chunks
+    return tuple(x.expand(*batch, k)
+                 for x in (ev_tick, ev_origin, ev_name, ev_chunks))
 
 
 def _p_live(cfg: StreamcastConfig, tick: torch.Tensor):
     """Per-copy survival probability this round: ``1 - loss``, times the
-    ramps' survival where there are ramps, in the reference's order."""
+    ramps' survival where there are ramps, in the reference's order.  A
+    Python float in a plain run without ramps, else a ``[*B]`` tensor."""
+    loss = cfg.loss
+    if is_knob(loss):
+        base = 1.0 - loss.to(device=tick.device, dtype=torch.float32)
+    elif cfg.faults.ramps:
+        base = device_scalar(1.0 - loss, torch.float32, tick.device)
+    else:
+        return 1.0 - loss
     if cfg.faults.ramps:
-        base = device_scalar(1.0 - cfg.loss, torch.float32, tick.device)
         return base * (1.0 - extra_loss_at(cfg.faults, tick))
-    return 1.0 - cfg.loss
+    return base
+
+
+def over_nodes(x: torch.Tensor, nb: int, nrows: int) -> torch.Tensor:
+    """A window plane ``[*B, W, ...]`` (``nb`` universe axes) shaped to
+    broadcast against node planes ``[*B, *rows, W, ...]``."""
+    return x.reshape(*x.shape[:nb], *([1] * nrows), *x.shape[nb:])
 
 
 def chunk_validity(slot_event: torch.Tensor, ev_chunks: torch.Tensor,
                    e_chunks: int) -> torch.Tensor:
-    """bool[W, E]: chunk c of a slot is real iff ``c < ev_chunks`` of its
-    occupant; the rest is heavy-tail padding, born delivered.  Free slots
-    read event 0's count (every consumer is occupancy-gated)."""
-    nch = ev_chunks[torch.clamp(slot_event, min=0).long()]
+    """bool[*B, W, E]: chunk c of a slot is real iff ``c < ev_chunks`` of
+    its occupant; the rest is heavy-tail padding, born delivered.  Free
+    slots read event 0's count (every consumer is occupancy-gated)."""
+    nch = torch.gather(ev_chunks, -1, torch.clamp(slot_event, min=0).long())
     cidx = torch.arange(e_chunks, dtype=_I32, device=slot_event.device)
-    return cidx[None, :] < nch[:, None]
+    return cidx < nch[..., None]
 
 
 def select_chunk(cfg: StreamcastConfig, k_chunk: torch.Tensor,
@@ -398,38 +424,48 @@ class Admitted(NamedTuple):
     chunks: torch.Tensor       # bool[..., W, E]
     tx_left: torch.Tensor      # int32[..., W]
     cursor: torch.Tensor       # [..., W]
-    occ: torch.Tensor          # bool[W]
-    cvalid: torch.Tensor       # bool[W, E]
-    arrive: torch.Tensor       # bool[K]
-    overflow: torch.Tensor     # int32: this tick's window overflow
-    coalesced: torch.Tensor    # int32: this tick's supersedes
+    occ: torch.Tensor          # bool[*B, W]
+    cvalid: torch.Tensor       # bool[*B, W, E]
+    arrive: torch.Tensor       # bool[*B, K]
+    overflow: torch.Tensor     # int32 [*B]: this tick's window overflow
+    coalesced: torch.Tensor    # int32 [*B]: this tick's supersedes
+
+    def nodes(self, x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """A window plane of this tick against the node planes of
+        ``rows``."""
+        return over_nodes(x, self.occ.dim() - 1, rows.dim())
 
 
 def admit_stage(state: StreamcastState, cfg: StreamcastConfig, sched: tuple,
                 rows: torch.Tensor) -> Admitted:
     """Arrivals and window admission (replicated), then the node planes of
     ``rows`` (global ids, any leading shape; the state's planes shaped
-    ``[*rows.shape, W, ...]``): fresh or freed slots cleared and their
-    cursors re-phased, each new origin seeded with a full budget, and
-    heavy-tail padding chunks born delivered everywhere."""
+    ``[*B, *rows.shape, W, ...]``): fresh or freed slots cleared and
+    their cursors re-phased, each new origin seeded with a full budget,
+    and heavy-tail padding chunks born delivered everywhere."""
     ev_tick, ev_origin, ev_name, ev_chunks = sched
     t = state.tick
-    arrive = ev_tick == t
+    nb, nrows = t.dim(), rows.dim()
+
+    def nodes(x):
+        return over_nodes(x, nb, nrows)
+
+    arrive = ev_tick == t[..., None]
     slot_event, slot_birth, filled, freed, ov, co = admit(
         state.slot_event, state.slot_birth, arrive, ev_name, t
     )
-    fresh = freed | filled                                   # [W]
-    chunks = state.chunks & ~fresh[:, None]
+    fresh = nodes(freed | filled)                            # [W]
+    chunks = state.chunks & ~fresh[..., None]
     tx_left = torch.where(fresh, 0, state.tx_left)
     cursor = torch.where(
         fresh, cursor_phase(rows, cfg.chunks, state.cursor.dtype)[..., None],
         state.cursor,
     )
-    org = ev_origin[torch.clamp(slot_event, min=0).long()]
-    seed = filled & (rows[..., None] == org)                 # [..., W]
+    org = torch.gather(ev_origin, -1, torch.clamp(slot_event, min=0).long())
+    seed = nodes(filled) & (rows[..., None] == nodes(org))   # [..., W]
     occ = slot_event >= 0
     cvalid = chunk_validity(slot_event, ev_chunks, cfg.chunks)
-    born = occ[:, None] & ~cvalid
+    born = nodes(occ[..., None] & ~cvalid)
     chunks = chunks | seed[..., None] | born
     tx_left = torch.where(seed, cfg.tx_limit, tx_left)
     return Admitted(slot_event, slot_birth, chunks, tx_left, cursor, occ,
@@ -443,8 +479,9 @@ def service_stage(cfg: StreamcastConfig, k_tie: torch.Tensor,
     index so that the bound is exact) and picks the chunk each pushes.
     Returns ``(held_real, serviced, sel, cursor)``."""
     w_slots = cfg.window
-    held_real = adm.chunks & adm.cvalid
-    eligible = torch.any(held_real, dim=-1) & (adm.tx_left > 0) & adm.occ
+    held_real = adm.chunks & adm.nodes(adm.cvalid, rows)
+    eligible = (torch.any(held_real, dim=-1) & (adm.tx_left > 0)
+                & adm.nodes(adm.occ, rows))
     prio = torch.where(eligible, adm.tx_left.to(torch.float32),
                        -math.inf) + owned_uniform(k_tie, rows, (w_slots,))
     widx = torch.arange(w_slots, dtype=_I32, device=prio.device)
@@ -453,7 +490,10 @@ def service_stage(cfg: StreamcastConfig, k_tie: torch.Tensor,
         & (widx[None, :] < widx[:, None])
     )
     rank = torch.sum(ahead, dim=-1, dtype=_I32)
-    serviced = eligible & (rank < cfg.chunk_budget)
+    budget = cfg.chunk_budget
+    if is_knob(budget):
+        budget = lift(budget.to(rank.device), rows.dim() + 1)
+    serviced = eligible & (rank < budget)
     sel, cursor = select_chunk(cfg, k_chunk, rows, held_real, adm.cursor,
                                serviced)
     return held_real, serviced, sel, cursor
@@ -465,19 +505,22 @@ def edge_messages(cfg: StreamcastConfig, k_sel: torch.Tensor,
     """The (sender, slot, target) messages of the serviced slots in the
     reference's ``[rows, W, F]`` order, the last row axis flattened with
     the slot and target axes: ``(recv, wix, cix, ok)``, each
-    ``[*rows.shape[:-1], rows.shape[-1] * W * F]`` (one stream a shard)."""
+    ``[*B, *rows.shape[:-1], rows.shape[-1] * W * F]`` (one stream a shard
+    or a universe)."""
     w_slots, fanout = cfg.window, cfg.fanout
     targets = sample_peers_owned(k_sel, rows, cfg.n, fanout)  # [..., F]
+    if isinstance(p_live, torch.Tensor) and p_live.dim():
+        p_live = lift(p_live, rows.dim() + 2)
     ok = serviced[..., None] & bernoulli_mask_owned(
         k_loss, rows, (w_slots, fanout), p_live
     )
-    shape = (*rows.shape, w_slots, fanout)
+    shape = (*targets.shape[:-1], w_slots, fanout)
     recv = targets[..., None, :].expand(shape)
     wix = torch.arange(w_slots, dtype=_I32,
                        device=rows.device)[:, None].expand(shape)
     cix = sel[..., None].expand(shape)
-    return tuple(x.reshape(*rows.shape[:-1], -1)
-                 for x in (recv, wix, cix, ok))
+    lead = targets.shape[:-2]
+    return tuple(x.reshape(*lead, -1) for x in (recv, wix, cix, ok))
 
 
 def chunk_index(cfg: StreamcastConfig, recv: torch.Tensor, wix: torch.Tensor,
@@ -489,17 +532,25 @@ def chunk_index(cfg: StreamcastConfig, recv: torch.Tensor, wix: torch.Tensor,
 
 def aggregate_rate(cfg: StreamcastConfig, held_real: torch.Tensor,
                    serviced: torch.Tensor, sel: torch.Tensor, p_live,
-                   node_sum) -> torch.Tensor:
+                   node_sum, nb: int = 0) -> torch.Tensor:
     """float32[..., W, E]: each receiver's Poisson intensity per (slot,
     chunk) class, the class's sender count over all nodes (``node_sum``,
     exact: its terms are 0 and 1) less the receiver's own copies, times
-    ``fanout * p_live / (n - 1)`` in the reference's operation order."""
+    ``fanout * p_live / (n - 1)`` in the reference's operation order.
+    ``nb`` counts the universe axes in front of the node axis."""
     dev = held_real.device
     cidx = torch.arange(cfg.chunks, dtype=_I32, device=dev)
     onehot = held_real & (sel[..., None] == cidx)
     contrib = (serviced[..., None] & onehot).to(torch.float32)
-    s_tot = node_sum(contrib)                                 # [W, E]
-    lam = (s_tot - contrib) * device_scalar(cfg.fanout, torch.float32, dev)
+    s_tot = over_nodes(node_sum(contrib), nb, 1)              # [W, E]
+    fanout, trailing = cfg.fanout, contrib.dim() - nb
+    if is_knob(fanout):
+        fanout = lift(fanout.to(device=dev, dtype=torch.float32), trailing)
+    else:
+        fanout = device_scalar(fanout, torch.float32, dev)
+    if isinstance(p_live, torch.Tensor) and p_live.dim():
+        p_live = lift(p_live, trailing)
+    lam = (s_tot - contrib) * fanout
     lam = lam * device_scalar(p_live, torch.float32, dev)
     return lam / device_scalar(max(cfg.n - 1, 1), torch.float32, dev)
 
@@ -519,35 +570,45 @@ def finish_stage(state: StreamcastState, cfg: StreamcastConfig,
     """Budget spend, completion and retirement: ``(next_state, outs)``
     with ``outs`` the per-tick ``(slot_event, slot_birth, done_count,
     offered, delivered, quiesced, window_overflow, coalesced, sent)``.
-    ``node_sum`` sums a ``[..., W]`` plane over the nodes."""
-    fanout = cfg.fanout
+    ``node_sum`` sums a ``[*B, ..., W]`` plane over the nodes."""
     t = state.tick
-    sent = torch.sum(serviced, dtype=_I32) * fanout
-    spent = torch.where(serviced, fanout, 0).to(_I32)
+    nb = t.dim()
+    nrows = serviced.dim() - nb - 1
+
+    def nodes(x):
+        return over_nodes(x, nb, nrows)
+
+    fanout = cfg.fanout
+    spent_f = lift(fanout.to(t.device), nrows + 1) if is_knob(fanout) \
+        else fanout
+    sent = torch.sum(serviced, dim=tuple(range(nb, serviced.dim())),
+                     dtype=_I32) * fanout
+    spent = torch.where(serviced, spent_f, 0).to(_I32)
     tx_left = torch.clamp(adm.tx_left - spent, min=0)
     newly = torch.any(new_chunks & ~adm.chunks, dim=-1)
     tx_left = torch.where(newly, cfg.tx_limit, tx_left)
 
-    full = torch.all(new_chunks, dim=-1) & adm.occ
+    full = torch.all(new_chunks, dim=-1) & nodes(adm.occ)
     done_count = node_sum(full.to(_I32))                      # [W]
     # Active senders hold a REAL chunk: padding never keeps a slot busy.
-    active = node_sum((torch.any(new_chunks & adm.cvalid, dim=-1)
+    active = node_sum((torch.any(new_chunks & nodes(adm.cvalid), dim=-1)
                        & (tx_left > 0)).to(_I32))
     cleared, complete, quiesced = retire(
         adm.slot_event, done_count, active, adm.slot_birth, t,
         cfg.done_target,
     )
-    offered = state.offered + torch.sum(adm.arrive, dtype=_I32)
-    delivered = state.delivered + torch.sum(complete, dtype=_I32)
-    quiesced_ct = state.quiesced + torch.sum(quiesced, dtype=_I32)
+    offered = state.offered + torch.sum(adm.arrive, dim=-1, dtype=_I32)
+    delivered = state.delivered + torch.sum(complete, dim=-1, dtype=_I32)
+    quiesced_ct = state.quiesced + torch.sum(quiesced, dim=-1, dtype=_I32)
     overflow = state.window_overflow + adm.overflow
     coalesced = state.coalesced + adm.coalesced
     outs = (adm.slot_event, adm.slot_birth, done_count, offered, delivered,
             quiesced_ct, overflow, coalesced, sent)
+    cleared_n = nodes(cleared)
     nxt = StreamcastState(
-        chunks=new_chunks & ~cleared[:, None],
-        tx_left=torch.where(cleared, 0, tx_left),
-        cursor=torch.where(cleared, 0, cursor),
+        chunks=new_chunks & ~cleared_n[..., None],
+        tx_left=torch.where(cleared_n, 0, tx_left),
+        cursor=torch.where(cleared_n, 0, cursor),
         slot_event=torch.where(cleared, -1, adm.slot_event),
         slot_birth=adm.slot_birth,
         offered=offered,
@@ -568,18 +629,19 @@ def round_keys(key: torch.Tensor):
     return k_sel, k_loss, k_tie, k_chunk
 
 
-def _sum_nodes(x: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x, dim=0, dtype=x.dtype)
-
-
 def streamcast_round(state: StreamcastState, key: torch.Tensor,
                      cfg: StreamcastConfig, sched: tuple):
     """One gossip tick of the pipelined stream: ``(next_state, outs)``
     (:func:`finish_stage`).  The window snapshots are taken after
     admission and before retirement."""
     n, w_slots, e_chunks = cfg.n, cfg.window, cfg.chunks
+    nb = state.tick.dim()
     k_sel, k_loss, k_tie, k_chunk = round_keys(key)
     rows = torch.arange(n, dtype=_I32, device=key.device)
+
+    def sum_nodes(x):
+        return torch.sum(x, dim=nb, dtype=x.dtype)
+
     adm = admit_stage(state, cfg, sched, rows)
     held_real, serviced, sel, cursor = service_stage(cfg, k_tie, k_chunk,
                                                      rows, adm)
@@ -589,14 +651,18 @@ def streamcast_round(state: StreamcastState, key: torch.Tensor,
                                            serviced, sel, p_live)
         size = n * w_slots * e_chunks
         flat = torch.where(ok, chunk_index(cfg, recv, wix, cix), size)
-        hits = torch.zeros(size + 1, dtype=torch.bool, device=key.device)
-        hits[flat.reshape(-1)] = True
-        new_chunks = adm.chunks | hits[:size].view(n, w_slots, e_chunks)
+        if nb:
+            base = torch.arange(state.tick.numel(), device=key.device)
+            flat = flat + base.view(*state.tick.shape, 1) * (size + 1)
+        hits = torch.zeros((*state.tick.shape, size + 1), dtype=torch.bool,
+                           device=key.device)
+        hits.view(-1)[flat.reshape(-1)] = True
+        new_chunks = adm.chunks | hits[..., :size].view(
+            *state.tick.shape, n, w_slots, e_chunks)
     else:
         lam = aggregate_rate(cfg, held_real, serviced, sel, p_live,
-                             _sum_nodes)
+                             sum_nodes, nb)
         new_chunks = adm.chunks | aggregate_arrivals_chunks(cfg, k_loss,
                                                             rows, lam)
     return finish_stage(state, cfg, adm, new_chunks, serviced, cursor,
-                        _sum_nodes)
-
+                        sum_nodes)

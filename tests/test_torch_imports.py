@@ -29,7 +29,10 @@ MODULES = (
     "consul_tpu_torch.sim.scenarios", "consul_tpu_torch.sim.breakdown",
     "consul_tpu_torch.sim.load", "consul_tpu_torch.streamcast",
     "consul_tpu_torch.streamcast.model", "consul_tpu_torch.streamcast.window",
-    "consul_tpu_torch.streamcast.report",
+    "consul_tpu_torch.streamcast.report", "consul_tpu_torch.ops.knobs",
+    "consul_tpu_torch.sweep", "consul_tpu_torch.sweep.universe",
+    "consul_tpu_torch.sweep.frontier", "consul_tpu_torch.sweep.presets",
+    "consul_tpu_torch.sweep.optimize",
     "chip_smoke",
 )
 
