@@ -66,7 +66,7 @@ Run from the root of the repository.  Phases, each fatal on failure:
      path, the kernel alone, the plain version, ``transpose(0,
      1).contiguous()`` of the stacked box and the byte bound; the
      studies over 8 logical shards with both transports: sparse 100k cold
-     (200 ticks), sparse 1M cold (60), dense 16k (30), each with ring ==
+     (120 ticks), sparse 1M cold (60), dense 16k (30), each with ring ==
      alltoall on every tick and in the final state, one ring launch a
      tick, at most 2 host syncs a sparse tick (0 dense), the detection
      invariants, the peak memory, and the unsharded run's outputs where
@@ -106,9 +106,27 @@ Run from the root of the repository.  Phases, each fatal on failure:
      ticks) with the accounting identity in every universe; ``streamadv``
      (uniform, 4096); and bench.py's 1M sustained-load curve in its swept
      form (the paced stream, W=7, E=4, fanout 4, budget 4, done_frac 0.99,
-     rates 0.1 / 0.3 / 0.6 / 1.2 as one U = 4 sweep of 150 ticks per
-     policy) with its points, knee, rounds/s, device ms a tick and peak
+     rates 0.1 / 0.3 / 0.6 / 1.2 as one U = 4 sweep of 100 ticks per
+     policy, bench.py's 150 cut for time) with its points, knee, rounds/s, device ms a tick and peak
      memory.
+ 11. the sweep x shard composition and the membership sweeps: the ring
+     kernel at the composed outbox ``[4, 8, 8, 5, 40062]`` (U = 4
+     universes of the sparse 100k twin's planes, one ``(C, U, D, pitch)``
+     buffer at offsets 0 and 1) bit for bit against its plain version and
+     timed as in phase 8; bench.py's composed real run at full width, the
+     sparse 100k cold study's loss ladder 0.01-0.04 as one U = 4 sweep of
+     120 ticks, unsharded (``sweep_sparse_100k_u4``) and over 8 logical
+     shards with both transports (``sweepshard_sparse_100k_u4_d8_ring`` /
+     ``_alltoall``): ring == alltoall on every tick and in the final
+     state, == the unsharded sweep in every universe whose overflows are
+     0, the detection invariants in every universe, one ring launch a
+     tick (counted, and seen by ``torch.profiler``), 0 host syncs a tick,
+     launches and device ms a tick, peak memory, beside the plain sparse
+     100k study's rounds/s; ``sweep_dense_16k_u2`` (U = 2, 10 ticks) with
+     its peak memory; and the five composed families (broadcast, dense,
+     sparse, streamcast, geo) at U = 2 x D = 2 with a knob varying, both
+     transports, card == CPU on every tick's outputs, the final state and
+     the overflow.
 
 The next-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -156,6 +174,10 @@ SMALL_N = 4096
 SPARSE_N = 100_000
 SPARSE_COLD_100K_STEPS = 200
 SPARSE_COLD_1M_STEPS = 60  # holds the first suspicion, not the DEAD wave
+# The 100k twin over 8 shards (phase 8): the first suspicion (tick 10) and
+# the first DEAD (tick 110) are inside 120 ticks; phase 11 runs the same
+# twin for 120 ticks in each of its four universes.
+SPARSE_SHARD_100K_STEPS = 120
 STEADY_STEPS = 8           # bench.py's steps for the steady-state measure
 DENSE_N = 16384            # the reference's dense@16k registry program
 DENSE_STEPS = 30
@@ -1277,7 +1299,9 @@ def phase_sharded_membership(dev, card: str, unsharded: dict) -> dict:
     transports: ring == alltoall on every tick and in the final state, one
     ring launch a tick, at most 2 host syncs a sparse tick (0 dense), the
     detection invariants, and the unsharded run's outputs wherever both
-    overflows are 0.  Returns each ring study's kernel launches."""
+    overflows are 0.  Returns each ring study's kernel launches, and the
+    sparse 100k ring run's host outputs, final state on the host and
+    overflow (phase 11's composed ladder holds its universe 0 to them)."""
     import torch
 
     from consul_tpu_torch.models import membership_init, sparse_membership_init
@@ -1292,13 +1316,14 @@ def phase_sharded_membership(dev, card: str, unsharded: dict) -> dict:
     mesh = mesh_for(SHARDS, dev)
     studies = (
         ("membership_sparse_100k_cold_d8", "membership_sparse_100k_cold",
-         sparse_cfg(SPARSE_N), SPARSE_COLD_100K_STEPS),
+         sparse_cfg(SPARSE_N), SPARSE_SHARD_100K_STEPS),
         ("membership_sparse_1m_cold_d8", "membership_sparse_1m_cold",
          sparse_cfg(N_1M), SPARSE_COLD_1M_STEPS),
         ("membership_dense_16k_d8", "membership_dense_16k",
          sharded_dense_cfg(), DENSE_STEPS),
     )
     launches = {}
+    twin = None
     for tag, plain_tag, cfg, steps in studies:
         sparse = hasattr(cfg, "base")
         base = cfg.base if sparse else cfg
@@ -1361,11 +1386,16 @@ def phase_sharded_membership(dev, card: str, unsharded: dict) -> dict:
             check(a.dtype == b.dtype and torch.equal(a, b),
                   f"{tag}: final {name} ring != alltoall")
         check(ov_ring == ov_a2a, f"{tag}: overflow ring != alltoall")
+        if tag == "membership_sparse_100k_cold_d8":
+            twin = (to_cpu(f_ring), o_ring, ov_ring)
         del runs, f_ring, f_a2a
         plain, plain_ov = unsharded[plain_tag]
         fields = ("suspecting", "dead_known", "suspect_cells",
                   "known_members")
-        same = all(np.array_equal(o, getattr(plain, f))
+        # Trajectories are prefix-stable and the overflow counter only
+        # grows, so a shorter sharded run compares with the unsharded
+        # run's prefix.
+        same = all(np.array_equal(o, getattr(plain, f)[:len(o)])
                    for o, f in zip(o_ring, fields))
         log(f"{tag}: ring == alltoall every tick and in the final state; "
             f"overflow sharded {ov_ring}, unsharded {plain_ov}; per-tick "
@@ -1373,7 +1403,7 @@ def phase_sharded_membership(dev, card: str, unsharded: dict) -> dict:
             "run")
         if ov_ring == 0 and plain_ov == 0:
             check(same, f"{tag}: overflow 0 but outputs != unsharded")
-    return launches
+    return launches, twin
 
 
 def phase_sharded_parity(dev) -> None:
@@ -1827,14 +1857,15 @@ def _leaves_equal(want: list, got: list) -> str:
 def _profile_ticks(run, ticks: int) -> dict:
     """Kernel launches and kernel time a tick that ``torch.profiler`` sees
     in ``run()`` (copies and fills aside), and the share of the run's
-    wall time the card was busy."""
+    wall time the card was busy.  Only the device is traced: with the
+    host traced too, the ``record_function`` ranges of the sort-merge
+    would count as device events, and the host's tracing slows the run."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2077,6 +2108,340 @@ def phase_sweep(dev, card: str) -> None:
     log(f"sweep phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 11: the sweep x shard composition and the membership sweeps.
+# bench.py's composed real run (consul_tpu/sweep/compose.py:115-123) with
+# the cold study's crash tick: the loss ladder as U = 4 universes; 120
+# ticks hold the first suspicion and the first DEAD (due at tick 110).
+# Universe 0 (loss 0.01, seed 0) is phase 8's sharded twin, tick for tick.
+SWEEPSHARD_LOSSES = (0.01, 0.02, 0.03, 0.04)
+SWEEPSHARD_STEPS = SPARSE_SHARD_100K_STEPS
+SWEEP_DENSE_LOSSES = (0.01, 0.02)   # U = 2: a plain 16k study peaks at 25 GiB
+SWEEP_DENSE_STEPS = 10
+SWEEPSHARD_SMALL_STEPS = 12
+SWEEPSHARD_PROFILE_TICKS = 3
+
+
+def sweepshard_universe(cfg, steps: int, losses: tuple, track=(42,)):
+    from consul_tpu_torch.sweep import Universe
+
+    sparse = hasattr(cfg, "base")
+    return Universe(entrypoint="sparse" if sparse else "membership", cfg=cfg,
+                    steps=steps, seeds=(0,) * len(losses), track=track,
+                    knobs=("base.loss" if sparse else "loss",),
+                    values=(losses,))
+
+
+def phase_ring_universe(dev, path: str, shape) -> dict:
+    """The ring kernel at a composed sweep's outbox ``[U, D, D, C,
+    budget]``, fed as ``pack_outbox`` leaves the planes (one ``(C, U, D,
+    pitch)`` buffer) at offsets 0 and 1: bit for bit against its plain
+    version, then timed as in phase 8 (the whole exchange on both
+    transports, the kernel alone, the plain version, and
+    ``transpose(1, 2).contiguous()`` of the stacked box as the library
+    call)."""
+    import torch
+
+    from consul_tpu_torch.ops import (
+        ring_exchange_planes,
+        ring_exchange_planes_plain,
+    )
+    from consul_tpu_torch.parallel import exchange_outbox, outbox_pitch
+
+    u, d, _, c, budget = shape
+    pitch = outbox_pitch(d, budget)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    max_err = 0
+    for offset in (1, 0):
+        flat = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                             (c * u * d * pitch + offset,), generator=gen,
+                             dtype=torch.int32, device=dev)
+        planes = flat[offset:].view(c, u, d, pitch)[..., :d * budget] \
+            .unflatten(-1, (d, budget)).unbind(0)
+        got = ring_exchange_planes(planes)
+        want = ring_exchange_planes_plain(planes)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            max_err = max(max_err, int((g.to(torch.int64) - w.to(torch.int64))
+                                       .abs().max()))
+            check(g.shape == (u, d, d * budget) and torch.equal(g, w),
+                  f"ring kernel != plain at {list(shape)} offset {offset}")
+        del got, want
+    box = torch.stack(planes, dim=3).contiguous()
+    row = {
+        "path": path, "shape": list(shape), "max_abs_err": max_err,
+        "ms": cuda_ms(lambda: exchange_outbox(planes, "ring")),
+        "alltoall_ms": cuda_ms(lambda: exchange_outbox(planes, "alltoall")),
+        "busy_ms": device_ms(lambda: ring_exchange_planes(planes)),
+        "plain_ms": cuda_ms(lambda: ring_exchange_planes_plain(planes), 10, 3),
+        "library_ms": cuda_ms(lambda: box.transpose(1, 2).contiguous()),
+        "bound_ms": 2 * c * u * d * d * budget * 4 / PEAK_BYTES_PER_S * 1e3,
+    }
+    del box, planes, flat
+    log("ring path " + json.dumps(row))
+    return row
+
+
+def _membership_report_of(uni, outs, u: int, wall: float):
+    """Universe ``u`` of a membership sweep's host outputs as a report."""
+    from consul_tpu_torch.sim.metrics import MembershipReport
+
+    base = uni.cfg.base if hasattr(uni.cfg, "base") else uni.cfg
+    return MembershipReport(
+        n=base.n, ticks=uni.steps, tick_ms=base.profile.gossip_interval_ms,
+        probe_interval_ms=base.profile.probe_interval_ms, track=uni.track,
+        suspecting=outs[0][u], dead_known=outs[1][u],
+        suspect_cells=outs[2][u], known_members=outs[3][u], wall_s=wall)
+
+
+def _run_membership_sweep(uni, dev, mesh=None, exchange="alltoall"):
+    """One membership sweep on the card, fenced: ``(final, host outs,
+    overflow[U] or None, wall s, host syncs a tick, peak GiB)``."""
+    import torch
+
+    from consul_tpu_torch.ops import host_cond
+    from consul_tpu_torch.sweep import make_sweep, stacked_init
+
+    sweep = make_sweep(uni.entrypoint, uni.U, False, mesh, exchange)
+    state, keys = stacked_init(uni, dev), uni.keys(dev)
+    vals = uni.knob_arrays(dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats()
+    syncs = host_cond.syncs
+    t0 = time.perf_counter()
+    out = sweep(state, keys, vals, uni.cfg, uni.steps, uni.knobs, uni.track)
+    torch.cuda.synchronize(dev)
+    outs = tuple(o.cpu().numpy() for o in out[1])
+    ov = out[2].cpu().numpy() if mesh is not None else None
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (out[0], outs, ov, wall, (host_cond.syncs - syncs) / uni.steps,
+            peak)
+
+
+def _profile_sweep(uni, dev, ticks: int, mesh=None, exchange="alltoall"):
+    """Launches and device ms a tick of a ``ticks``-tick window of the
+    sweep (``_profile_ticks``), and the ring kernels the profiler saw."""
+    import dataclasses as dc
+
+    from consul_tpu_torch.sweep import make_sweep, stacked_init
+
+    short = dc.replace(uni, steps=ticks)
+    sweep = make_sweep(uni.entrypoint, uni.U, False, mesh, exchange)
+    state, keys = stacked_init(short, dev), short.keys(dev)
+    vals = short.knob_arrays(dev)
+
+    def run():
+        return sweep(state, keys, vals, short.cfg, ticks, short.knobs,
+                     short.track)
+
+    prof = _profile_ticks(run, ticks)
+    prof["ring_kernels"] = sum(count for name, count in
+                               prof.pop("kernels").items()
+                               if "ring" in name.lower())
+    return prof
+
+
+def phase_sweepshard(dev, card: str, plain_sparse, twin) -> tuple:
+    """The sweep x shard composition and the membership sweeps at full
+    width: the kernel at the composed outbox; the sparse 100k loss ladder
+    (U = 4, 120 ticks) unsharded and over 8 shards with both transports
+    (ring == alltoall every tick and in the final state, universe 0 ==
+    phase 8's sharded ``twin`` every tick and in the final state, ==
+    unsharded wherever both overflows are 0, the detection invariants in
+    every universe, one ring launch a tick, 0 host syncs a tick); the dense 16k
+    ladder (U = 2, 10 ticks) with its peak memory.  Returns the kernel's
+    row and the composed ring study's launches."""
+    import torch
+
+    from consul_tpu_torch import MembershipConfig
+    from consul_tpu_torch.ops import ring_exchange
+    from consul_tpu_torch.parallel import mesh_for, sharded_sparse_plan
+    from consul_tpu_torch.protocol import LAN
+
+    t_phase = time.perf_counter()
+    mesh = mesh_for(SHARDS, dev)
+    cfg = sparse_cfg(SPARSE_N)
+    U = len(SWEEPSHARD_LOSSES)
+    shape = (U, SHARDS, SHARDS, 5, sharded_sparse_plan(cfg, mesh, dev).budget)
+    row = phase_ring_universe(
+        dev, "make_sweep('sparse', 4, mesh=mesh_for(8), exchange='ring'), "
+        "n=100000", shape)
+
+    uni = sweepshard_universe(cfg, SWEEPSHARD_STEPS, SWEEPSHARD_LOSSES)
+    base = cfg.base
+    runs = {}
+    launches = None
+    for tag, mesh_, exchange in (
+            ("sweep_sparse_100k_u4", None, "alltoall"),
+            ("sweepshard_sparse_100k_u4_d8_ring", mesh, "ring"),
+            ("sweepshard_sparse_100k_u4_d8_alltoall", mesh, "alltoall")):
+        ring_exchange.launches = 0
+        final, outs, ov, wall, syncs, peak = _run_membership_sweep(
+            uni, dev, mesh_, exchange)
+        n_launch = ring_exchange.launches
+        if exchange == "ring":
+            launches = n_launch
+        check(n_launch == (uni.steps if exchange == "ring" else 0),
+              f"{tag}: ring kernel launched {n_launch} times in "
+              f"{uni.steps} ticks")
+        check(syncs == 0, f"{tag}: {syncs} host syncs a tick (auto amortize "
+              "resolves to False in a sweep)")
+        model_ov = final.overflow.cpu().numpy()
+        dets = []
+        for u in range(U):
+            rep = _membership_report_of(uni, outs, u, wall)
+            dets.append(check_detection(rep, base, f"{tag} universe {u}"))
+        t_prof = time.perf_counter()
+        prof = _profile_sweep(uni, dev, SWEEPSHARD_PROFILE_TICKS, mesh_,
+                              exchange)
+        prof_s = time.perf_counter() - t_prof
+        if exchange == "ring":
+            check(prof["ring_kernels"] == SWEEPSHARD_PROFILE_TICKS,
+                  f"{tag}: the profiler saw {prof['ring_kernels']} ring "
+                  f"kernels in {SWEEPSHARD_PROFILE_TICKS} ticks")
+        membership_line(
+            tag, card, universes=U, ticks=uni.steps, losses=SWEEPSHARD_LOSSES,
+            wall_s=wall, rounds_per_sec=U * uni.steps / wall,
+            plain_sparse_100k_rounds_per_sec=plain_sparse.rounds_per_sec,
+            overflow=model_ov.tolist(),
+            outbox_overflow=None if ov is None else ov.tolist(),
+            detection=dets, dead_known_final=outs[1][:, -1, 0].tolist(),
+            peak_gib=peak, host_syncs_per_tick=syncs, ring_launches=n_launch,
+            profile=prof, profile_s=prof_s,
+            device=torch.cuda.get_device_name(dev))
+        runs[tag] = (final, outs, model_ov)
+        del final
+        torch.cuda.empty_cache()
+    (f_r, o_r, ov_r), (f_a, o_a, ov_a) = (
+        runs["sweepshard_sparse_100k_u4_d8_ring"],
+        runs["sweepshard_sparse_100k_u4_d8_alltoall"])
+    for i, (a, b) in enumerate(zip(o_r, o_a)):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"sweepshard sparse: output {i} ring != alltoall")
+    for name, a, b in zip(f_r._fields, f_r, f_a):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"sweepshard sparse: final {name} ring != alltoall")
+    check(np.array_equal(ov_r, ov_a), "sweepshard sparse: overflow ring != "
+          "alltoall")
+    # Universe 0 runs phase 8's twin (loss 0.01, seed 0, the same ticks):
+    # equal whatever the overflow, so every universe index of the composed
+    # program is held to a run that has no universe axis.
+    w_final, w_outs, w_ov = twin
+    for i, (a, b) in enumerate(zip(w_outs, o_r)):
+        check(a.dtype == b.dtype and np.array_equal(a, b[0]),
+              f"sweepshard sparse universe 0: output {i} != phase 8's twin")
+    for name, a, b in zip(w_final._fields, w_final, f_r):
+        check(a.dtype == b.dtype and torch.equal(a, b[0].cpu()),
+              f"sweepshard sparse universe 0: final {name} != phase 8's twin")
+    check(int(ov_r[0]) == w_ov, f"sweepshard sparse universe 0: overflow "
+          f"{int(ov_r[0])} != phase 8's twin's {w_ov}")
+    _, o_p, ov_p = runs["sweep_sparse_100k_u4"]
+    equal = []
+    for u in range(U):
+        same = all(np.array_equal(a[u], b[u]) for a, b in zip(o_r, o_p))
+        equal.append(same)
+        if ov_r[u] == 0 and ov_p[u] == 0:
+            check(same, f"sweepshard sparse universe {u}: overflow 0 but "
+                  "outputs != unsharded sweep")
+    log(f"sweepshard sparse 100k: ring == alltoall every tick and in the "
+        f"final state; universe 0 == phase 8's twin every tick and in the "
+        f"final state; overflow composed {ov_r.tolist()}, unsharded "
+        f"{ov_p.tolist()}; per-universe outputs equal to the unsharded "
+        f"sweep: {equal}")
+    del runs, f_r, f_a
+    torch.cuda.empty_cache()
+
+    dense = MembershipConfig(n=DENSE_N, loss=0.01, profile=LAN,
+                             fail_at=((42, 5),))
+    duni = sweepshard_universe(dense, SWEEP_DENSE_STEPS, SWEEP_DENSE_LOSSES)
+    final, outs, _, wall, syncs, peak = _run_membership_sweep(duni, dev)
+    del final
+    torch.cuda.empty_cache()
+    for u in range(duni.U):
+        rep = _membership_report_of(duni, outs, u, wall)
+        check(bool(np.all(np.diff(rep.dead_known[:, 0]) >= 0)),
+              f"sweep_dense_16k_u2 universe {u}: dead_known fell")
+        check(bool(np.all(rep.known_members > 0)),
+              f"sweep_dense_16k_u2 universe {u}: known_members")
+    prof = _profile_sweep(duni, dev, 1)
+    torch.cuda.empty_cache()
+    membership_line(
+        "sweep_dense_16k_u2", card, universes=duni.U, ticks=duni.steps,
+        losses=SWEEP_DENSE_LOSSES, wall_s=wall,
+        rounds_per_sec=duni.U * duni.steps / wall, peak_gib=peak,
+        host_syncs_per_tick=syncs, suspect_cells_final=outs[2][:, -1].tolist(),
+        profile=prof, device=torch.cuda.get_device_name(dev))
+    check(syncs == 0, f"sweep_dense_16k_u2: {syncs} host syncs a tick")
+    log(f"sweepshard full-width studies in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return row, launches
+
+
+def phase_sweepshard_small(dev) -> None:
+    """The five composed families at a small shape, U = 2 x D = 2 with a
+    knob varying, on both transports: ring == alltoall, and the card ==
+    the CPU on every tick's outputs, the final state and the overflow."""
+    import torch
+
+    from consul_tpu_torch import (
+        BroadcastConfig,
+        GeoConfig,
+        MembershipConfig,
+        SparseMembershipConfig,
+        StreamcastConfig,
+    )
+    from consul_tpu_torch.parallel import mesh_for
+    from consul_tpu_torch.protocol import LAN
+    from consul_tpu_torch.sweep import Universe, make_sweep, stacked_init
+
+    t_part = time.perf_counter()
+    churn = MembershipConfig(n=SMALL_N, loss=0.2, profile=LAN,
+                             fail_at=((5, 3), (100, 5), (2000, 8)),
+                             leave_at=((77, 10),))
+    dense = MembershipConfig(n=512, loss=0.2, profile=LAN,
+                             fail_at=((5, 3), (17, 8)), leave_at=((30, 12),))
+    families = {
+        "broadcast": (BroadcastConfig(n=SMALL_N, fanout=3, loss=0.05), (),
+                      "loss", (0.05, 0.3)),
+        "membership": (dense, (5,), "loss", (0.1, 0.3)),
+        "sparse": (SparseMembershipConfig(churn, k_slots=16), (5,),
+                   "base.loss", (0.1, 0.3)),
+        "streamcast": (StreamcastConfig(
+            n=SMALL_N, events=40, chunks=4, window=8, fanout=4,
+            chunk_budget=2, rate=0.3, loss=0.05, delivery="edges",
+            policy="pipeline"), (), "rate", (0.3, 0.8)),
+        "geo": (GeoConfig(n=SMALL_N, segments=8, bridges_per_segment=3,
+                          events=8), (), "loss_lan", (0.0, 0.3)),
+    }
+    for model, (cfg, track, knob, values) in families.items():
+        uni = Universe(entrypoint=model, cfg=cfg,
+                       steps=SWEEPSHARD_SMALL_STEPS, seeds=(3, 4),
+                       track=track, knobs=(knob,), values=(values,))
+        got = {}
+        for exchange in ("ring", "alltoall"):
+            for where in (dev, torch.device("cpu")):
+                final, outs, ov = make_sweep(
+                    model, 2, False, mesh_for(2, where), exchange)(
+                    stacked_init(uni, where), uni.keys(where),
+                    uni.knob_arrays(where), cfg, uni.steps, uni.knobs,
+                    track)
+                got[exchange, where.type] = (
+                    _sweep_leaves(outs) + [ov.cpu()], _sweep_leaves(final))
+        want = got["alltoall", "cpu"]
+        for key, (outs, final) in got.items():
+            diff = _leaves_equal(want[0], outs)
+            check(not diff, f"sweepshard {model} {key}: outputs != CPU "
+                  f"alltoall: {diff}")
+            diff = _leaves_equal(want[1], final)
+            check(not diff, f"sweepshard {model} {key}: state != CPU "
+                  f"alltoall: {diff}")
+        log(f"sweepshard {model}: U=2 x D=2, {knob} {values}, ring == "
+            f"alltoall and card == CPU on every tick's outputs, the final "
+            f"state and the overflow ({want[0][-1].tolist()}), "
+            f"{uni.steps} ticks at n={getattr(cfg, 'n', None) or cfg.base.n}")
+    log(f"sweepshard small families in {time.perf_counter() - t_part:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2106,7 +2471,8 @@ def main() -> int:
     log(f"geo slice phase passed in {time.perf_counter() - t7:.1f} s")
     t8 = time.perf_counter()
     paths = phase_ring_paths(dev, ring_path_shapes(dev))
-    study_launches = phase_sharded_membership(dev, card, membership_reports)
+    study_launches, sparse_twin = phase_sharded_membership(
+        dev, card, membership_reports)
     phase_sharded_parity(dev)
     log(f"sharded membership phase passed in {time.perf_counter() - t8:.1f}"
         " s")
@@ -2117,6 +2483,12 @@ def main() -> int:
     phase_stream_parity(dev)
     log(f"streamcast phase passed in {time.perf_counter() - t9:.1f} s")
     phase_sweep(dev, card)
+    t11 = time.perf_counter()
+    composed_row, composed_launches = phase_sweepshard(
+        dev, card, membership_reports["membership_sparse_100k_cold"][0],
+        sparse_twin)
+    phase_sweepshard_small(dev)
+    log(f"sweep x shard phase passed in {time.perf_counter() - t11:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     # Every ring path with the launches of the study that drives it; the
@@ -2129,7 +2501,8 @@ def main() -> int:
             stream_launches[STREAM_N], stream_launches[N_1M],
             stream_launches["event100k"])):
         row["launches"] = n_launch
-    paths = paths + stream_paths
+    composed_row["launches"] = composed_launches
+    paths = paths + stream_paths + [composed_row]
     head = max(paths, key=lambda row: np.prod(row["shape"]))
     kernel = {
         "name": "ring_exchange", "route": "cuda",

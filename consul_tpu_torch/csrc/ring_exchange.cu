@@ -10,17 +10,22 @@
 // DMA descriptor.
 //
 // Here one launch takes the C planes where the outbox packer left them:
-// plane c is read as  src[c] + me*src_me + dst*src_dst  (budget int32 per
-// (me, dst) segment) and written as  out[c] + dst*out_dst + me*out_me, so
-// the packed [D_src, pitch] buffers go straight into the [D_dst,
-// D_src*budget] inbox layout, with no stacking copy before and no column
-// slice after.  The C base pointers and the strides travel in two small
-// structs passed by value (kernel parameter space), so nothing is staged on
-// the device.  Segment s = (c*D + me)*D + h, dst = (me + h) % D, keeps the
-// reference's hop order.
+// plane c is read as  src[c] + u*src_u + me*src_me + dst*src_dst  (budget
+// int32 per (u, me, dst) segment) and written as  out[c] + u*out_u +
+// dst*out_dst + me*out_me, so the packed [U, D_src, pitch] buffers go
+// straight into the [U, D_dst, D_src*budget] inbox layout, with no stacking
+// copy before and no column slice after.  U is the universe axis of a
+// sweep (U independent studies, each over the same D shards; U = 1 for a
+// plain run): the reference batches its Pallas ring over it under vmap,
+// and here it is one more factor of the segment count, so one launch
+// serves every universe and every plane.  The C base pointers and the
+// strides travel in two small structs passed by value (kernel parameter
+// space), so nothing is staged on the device.  Segment s = ((c*U + u)*D +
+// me)*D + h, dst = (me + h) % D, keeps the reference's hop order within
+// each universe.
 //
-// Bound: pure data movement, 2 * C*D*D*budget*4 bytes (each word read once
-// and written once).  At the sparse 1M membership outbox over 8 shards
+// Bound: pure data movement, 2 * C*U*D*D*budget*4 bytes (each word read
+// once and written once).  At the sparse 1M membership outbox over 8 shards
 // (C = 5, budget = 400,812) that is 513 MB each way, about 0.31 ms at the
 // H100's 3.35 TB/s.  The design keeps 16-byte loads and stores in flight on
 // all SMs: a persistent grid (8 blocks of 256 threads an SM) walks tiles of
@@ -51,12 +56,13 @@ struct Planes {
 };
 
 struct Geometry {
-  long long budget;                  // int32 words per (me, dst) segment
-  long long src_me, src_dst;         // source plane strides, in words
-  long long out_dst, out_me;         // output plane strides, in words
+  long long budget;                  // int32 words per (u, me, dst) segment
+  long long src_univ, src_me, src_dst;  // source plane strides, in words
+  long long out_univ, out_dst, out_me;  // output plane strides, in words
   long long tiles_per_seg;
   long long n_tiles;
   int n_shards;
+  int n_univ;
 };
 
 __device__ __forceinline__ int4 shifted(const int4 a, const int4 b, int ph) {
@@ -73,9 +79,11 @@ ring_exchange_planes_kernel(const Planes p, const Geometry g) {
   for (long long tile = blockIdx.x; tile < g.n_tiles; tile += gridDim.x) {
     const long long seg = tile / g.tiles_per_seg;
     const long long chunk = tile - seg * g.tiles_per_seg;
+    const long long dd = static_cast<long long>(d) * d;
     const int h = static_cast<int>(seg % d);
     const int me = static_cast<int>((seg / d) % d);
-    const int c = static_cast<int>(seg / (static_cast<long long>(d) * d));
+    const long long u = (seg / dd) % g.n_univ;
+    const int c = static_cast<int>(seg / (dd * g.n_univ));
     const int dst = (me + h) % d;
     // Select the plane with constant indices: a runtime index into the
     // parameter struct would copy it to every thread's local memory.
@@ -88,8 +96,8 @@ ring_exchange_planes_kernel(const Planes p, const Geometry g) {
         o = p.out[i];
       }
     }
-    s += me * g.src_me + dst * g.src_dst;
-    o += dst * g.out_dst + me * g.out_me;
+    s += u * g.src_univ + me * g.src_me + dst * g.src_dst;
+    o += u * g.out_univ + dst * g.out_dst + me * g.out_me;
     const long long len = g.budget;
 
     // Head words until `o` is 16-byte aligned; the body is whole vectors.
@@ -158,11 +166,12 @@ int sm_count() {
 // `src` and `out` are host arrays of `n_planes` device pointers.  The
 // caller has checked shapes, type, device and strides.
 extern "C" int ring_exchange_planes_launch(
-    int n_planes, const void* const* src, void* const* out, int n_shards,
-    long long budget, long long src_me, long long src_dst, long long out_dst,
+    int n_planes, const void* const* src, void* const* out, int n_univ,
+    int n_shards, long long budget, long long src_univ, long long src_me,
+    long long src_dst, long long out_univ, long long out_dst,
     long long out_me, void* stream) {
-  if (n_planes <= 0 || n_planes > kMaxPlanes || n_shards <= 0 ||
-      budget <= 0) {
+  if (n_planes <= 0 || n_planes > kMaxPlanes || n_univ <= 0 ||
+      n_shards <= 0 || budget <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Planes p = {};
@@ -172,16 +181,20 @@ extern "C" int ring_exchange_planes_launch(
   }
   Geometry g;
   g.budget = budget;
+  g.src_univ = src_univ;
   g.src_me = src_me;
   g.src_dst = src_dst;
+  g.out_univ = out_univ;
   g.out_dst = out_dst;
   g.out_me = out_me;
   g.n_shards = n_shards;
+  g.n_univ = n_univ;
   // A segment's body holds at most budget/4 vectors; a segment too short
   // for one still takes a tile for its head and tail words.
   const long long n_vec = budget / 4;
   g.tiles_per_seg = n_vec > 0 ? (n_vec + kTileVecs - 1) / kTileVecs : 1;
-  g.n_tiles = g.tiles_per_seg * n_planes * n_shards * n_shards;
+  g.n_tiles = g.tiles_per_seg * n_planes * n_univ *
+              static_cast<long long>(n_shards) * n_shards;
   long long blocks = static_cast<long long>(sm_count()) * kBlocksPerSm;
   if (blocks > g.n_tiles) blocks = g.n_tiles;
   ring_exchange_planes_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,

@@ -32,7 +32,7 @@ from consul_tpu_torch.ops import (
     sample_peers,
     split,
 )
-from consul_tpu_torch.ops.knobs import is_knob, lift
+from consul_tpu_torch.ops.knobs import is_knob, keep_prob, lift
 from consul_tpu_torch.protocol import LAN, GossipProfile, retransmit_limit
 
 
@@ -123,11 +123,8 @@ def broadcast_round(state: BroadcastState, key: torch.Tensor,
             targets = sample_peers(k_sel, n, fanout)            # [n, f]
         else:
             targets = sample_alive_peers(k_sel, alive, fanout)
-        keep = 1.0 - cfg.loss
-        if is_knob(keep):
-            keep = lift(keep.to(senders.device), 2)
         delivered = senders[..., None] & bernoulli_mask(
-            k_loss, (n, fanout), keep
+            k_loss, (n, fanout), keep_prob(cfg.loss, 2)
         )
         if alive is not None:
             delivered = delivered & alive[targets.long()]

@@ -22,7 +22,9 @@ State (observer i = rows, subject j = columns):
   tick                 int32 scalar
 
 A round never writes into the state it was given and reads nothing back
-to the host.
+to the host.  It also runs a sweep's U universes at once: planes ``[U, n,
+n]`` and ``[U, n]``, ``tick`` ``[U]``, keys ``[U, 2]``, and ``loss`` and
+``suspicion_scale`` may be ``[U]`` knobs (``ops/knobs``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from consul_tpu_torch.device import device_scalar, resolve_device
-from consul_tpu_torch.models.swim import timeout_table
+from consul_tpu_torch.models.swim import (
+    probe_fail_prob,
+    scaled_bounds_ticks,
+    timeout_table,
+    traced_timeout_table,
+)
 from consul_tpu_torch.ops import (
     bernoulli_mask,
     owned_uniform_rows,
@@ -41,6 +48,7 @@ from consul_tpu_torch.ops import (
     sample_probe_targets,
     split,
 )
+from consul_tpu_torch.ops.knobs import col, is_knob, keep_prob, lift
 from consul_tpu_torch.protocol import (
     LAN,
     GossipProfile,
@@ -127,18 +135,16 @@ class MembershipConfig:
             self.n,
             self.profile.probe_interval_ms,
         )
-        g = self.profile.gossip_interval_ms
-        s = self.suspicion_scale
-        return lo_ms * s / g, hi_ms * s / g
+        return scaled_bounds_ticks(lo_ms, hi_ms,
+                                   self.profile.gossip_interval_ms,
+                                   self.suspicion_scale)
 
     @property
     def probe_fail_prob_alive(self) -> float:
         """P(a probe of a live target fails): the direct round trip (2
-        legs) and every indirect path (4 legs) drop (state.go:326-454)."""
-        ok = 1.0 - self.loss
-        p_direct = 1.0 - ok**2
-        p_indirect = 1.0 - ok**4
-        return p_direct * (p_indirect ** self.profile.indirect_checks)
+        legs) and every indirect path (4 legs) drop (state.go:326-454);
+        float32 [U] arithmetic for a swept ``loss``."""
+        return probe_fail_prob(self.loss, self.profile.indirect_checks)
 
 
 class MembershipState(NamedTuple):
@@ -202,19 +208,45 @@ class MembershipConstants(NamedTuple):
     leave_tick: torch.Tensor  # int32[n]
     join_tick: torch.Tensor   # int32[n]
     timeout: torch.Tensor     # float32[k+1]: swim.timeout_table of cfg
-    p_fail_alive: torch.Tensor  # float32 scalar
+    #                           (a swept suspicion_scale: [U, k+1])
+    p_fail_alive: torch.Tensor  # float32 scalar (a swept loss: [U, 1])
+
+
+def knob_column(x, device) -> torch.Tensor:
+    """A config-derived float32 value as a factor of ``[*B, n]`` planes: a
+    0-dim tensor for a Python number, a ``[U, 1]`` column for a swept
+    ``[U]`` value."""
+    if is_knob(x):
+        return lift(x.to(device=device, dtype=torch.float32), 1)
+    return device_scalar(x, torch.float32, device)
 
 
 def membership_constants(cfg: MembershipConfig, device) -> MembershipConstants:
     n = cfg.n
+    table = (traced_timeout_table(cfg) if is_knob(cfg.suspicion_scale)
+             else timeout_table(cfg))
     return MembershipConstants(
         fail_tick=_schedule_array(n, cfg.fail_at, NEVER, device),
         leave_tick=_schedule_array(n, cfg.leave_at, NEVER, device),
         join_tick=_schedule_array(n, cfg.join_at, 0, device),
-        timeout=timeout_table(cfg).to(device),
-        p_fail_alive=device_scalar(cfg.probe_fail_prob_alive, torch.float32,
-                                   device),
+        timeout=table.to(device),
+        p_fail_alive=knob_column(cfg.probe_fail_prob_alive, device),
     )
+
+
+def table_at(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` elementwise for a ``[k+1]`` table, or per universe
+    for a swept ``[U, k+1]`` table against ``[U, ...]`` indices."""
+    if table.dim() == 1:
+        return table[idx.long()]
+    return torch.gather(table, -1, idx.flatten(1).long()).view(idx.shape)
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for a node plane ``[*B, n]`` and indices ``[*B, ...]``,
+    each universe indexing its own row."""
+    return torch.gather(x, -1, idx.reshape(*x.shape[:-1], -1).long()
+                        ).view(idx.shape)
 
 
 def ground_truth(t, fail_tick, leave_tick, join_tick, grace: int):
@@ -244,43 +276,52 @@ def top_slots(prio: torch.Tensor, m: int) -> torch.Tensor:
     return 0xFFFFFFFF - (top & 0xFFFFFFFF)
 
 
+def diag(plane: torch.Tensor) -> torch.Tensor:
+    """The diagonal of each ``[n, n]`` plane of ``[*B, n, n]``."""
+    return plane.diagonal(dim1=-2, dim2=-1)
+
+
 def _set_diag(plane: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     out = plane.clone()
-    out.diagonal().copy_(values)
+    diag(out).copy_(values)
     return out
 
 
 def _set_cols(plane: torch.Tensor, col: torch.Tensor, apply: torch.Tensor,
               value) -> torch.Tensor:
-    """``plane`` with ``plane[i, col[i]] = value[i]`` in each row where
+    """``plane`` with ``plane[..., i, col[i]] = value[i]`` in each row where
     ``apply`` (the reference's ``.at[rows, col].set(mode="drop")`` with
     the dropped rows pointing past the end)."""
-    idx = torch.clamp(col, 0, plane.shape[1] - 1).long()[:, None]
-    cur = torch.gather(plane, 1, idx)[:, 0]
+    idx = torch.clamp(col, 0, plane.shape[-1] - 1).long()[..., None]
+    cur = torch.gather(plane, -1, idx)[..., 0]
     value = device_scalar(value, plane.dtype, plane.device)
     new = torch.where(apply, value, cur)
-    return plane.scatter(1, idx, new[:, None])
+    return plane.scatter(-1, idx, new[..., None])
 
 
-def track_outputs(steps: int, n_track: int, known_dtype, device):
+def track_outputs(steps: int, n_track: int, known_dtype, device,
+                  batch: tuple = ()):
     """Preallocated per-tick outputs of the membership scans: suspecting
-    and dead_known [steps, S], suspect_cells and known_members [steps]."""
-    return (torch.empty((steps, n_track), dtype=torch.int32, device=device),
-            torch.empty((steps, n_track), dtype=torch.int32, device=device),
-            torch.empty(steps, dtype=torch.int32, device=device),
-            torch.empty(steps, dtype=known_dtype, device=device))
+    and dead_known [*batch, steps, S], suspect_cells and known_members
+    [*batch, steps]."""
+    def out(*shape, dtype=torch.int32):
+        return torch.empty((*batch, steps, *shape), dtype=dtype,
+                           device=device)
+
+    return (out(n_track), out(n_track), out(), out(dtype=known_dtype))
 
 
 def membership_counts(key_m: torch.Tensor, track_idx: torch.Tensor):
     """A dense tick's outputs: for each tracked subject the observers
-    viewing it SUSPECT / DEAD (int32[S] each), the global count of suspect
-    cells and the sum of membership-list sizes (int32 scalars)."""
+    viewing it SUSPECT / DEAD (int32[*B, S] each), the global count of
+    suspect cells and the sum of membership-list sizes (int32 [*B])."""
     ranks = key_rank(key_m)
-    cols = ranks[:, track_idx]
-    return (torch.sum(cols == RANK_SUSPECT, dim=0, dtype=torch.int32),
-            torch.sum(cols == RANK_DEAD, dim=0, dtype=torch.int32),
-            torch.sum(ranks == RANK_SUSPECT, dtype=torch.int32),
-            torch.sum((key_m >= 0) & (ranks <= RANK_SUSPECT),
+    cols = ranks[..., track_idx]
+    cells = (-2, -1)
+    return (torch.sum(cols == RANK_SUSPECT, dim=-2, dtype=torch.int32),
+            torch.sum(cols == RANK_DEAD, dim=-2, dtype=torch.int32),
+            torch.sum(ranks == RANK_SUSPECT, dim=cells, dtype=torch.int32),
+            torch.sum((key_m >= 0) & (ranks <= RANK_SUSPECT), dim=cells,
                       dtype=torch.int32))
 
 
@@ -316,34 +357,34 @@ def gossip_stage(state: MembershipState, key_rng: torch.Tensor,
     own_inc = state.own_inc
 
     present, leaving, participates = ground_truth(
-        t, consts.fail_tick, consts.leave_tick, consts.join_tick,
+        col(t), consts.fail_tick, consts.leave_tick, consts.join_tick,
         cfg.leave_grace_ticks)
 
     # Leave intent: the leaver re-stamps its self-view LEFT at its own
     # incarnation and gossips it; the self-view never regresses.
-    diag = state.key.diagonal()
+    self_view = diag(state.key)
     diag_val = torch.where(leaving, make_key(own_inc, RANK_LEFT),
                            make_key(own_inc, RANK_ALIVE))
-    diag_val = torch.maximum(diag, diag_val)
-    key_m = _set_diag(state.key, torch.where(present, diag_val, diag))
-    tx = _set_diag(state.tx, torch.where(diag_val > diag, cfg.tx_limit,
-                                         state.tx.diagonal()))
+    diag_val = torch.maximum(self_view, diag_val)
+    key_m = _set_diag(state.key, torch.where(present, diag_val, self_view))
+    tx = _set_diag(state.tx, torch.where(diag_val > self_view, cfg.tx_limit,
+                                         diag(state.tx)))
 
     # 1. Gossip: the top-m queued messages (most retransmits left, random
     #    tie-break) go to each of ``fanout`` random targets in one packet.
     prio = tx.to(torch.float32) + owned_uniform_rows(k_tie, n, n)
     subj = top_slots(prio, m)                               # [n, m]
-    msg_key = torch.gather(key_m, 1, subj)
-    msg_valid = ((torch.gather(tx, 1, subj) > 0) & (msg_key >= 0)
-                 & participates[:, None])
+    msg_key = torch.gather(key_m, -1, subj)
+    msg_valid = ((torch.gather(tx, -1, subj) > 0) & (msg_key >= 0)
+                 & participates[..., None])
 
     targets = sample_peers(k_tgt, n, fanout).long()         # [n, F]
-    tgt_view = torch.gather(key_m, 1, targets)
+    tgt_view = torch.gather(key_m, -1, targets)
     # Senders gossip only to members they consider non-dead.
     tgt_sendable = (tgt_view >= 0) & (key_rank(tgt_view) <= RANK_SUSPECT)
-    packet_ok = (participates[:, None] & tgt_sendable
-                 & bernoulli_mask(k_loss, (n, fanout), 1.0 - cfg.loss)
-                 & participates[targets])
+    packet_ok = (participates[..., None] & tgt_sendable
+                 & bernoulli_mask(k_loss, (n, fanout), keep_prob(cfg.loss, 2))
+                 & take_rows(participates, targets))
     return GossipStage(keys, present, leaving, participates, key_m, tx, subj,
                        msg_key, msg_valid, targets, packet_ok)
 
@@ -353,7 +394,7 @@ def spend_gossip(g: GossipStage, fanout: int) -> torch.Tensor:
     drained message, spent whether or not the packet survived
     (queue.go:288-373); the drained columns of a row are distinct."""
     spend = torch.where(g.msg_valid, fanout, 0).to(torch.int32)
-    tx = g.tx.scatter(1, g.subj, torch.gather(g.tx, 1, g.subj) - spend)
+    tx = g.tx.scatter(-1, g.subj, torch.gather(g.tx, -1, g.subj) - spend)
     return torch.clamp(tx, min=0)
 
 
@@ -364,27 +405,55 @@ def push_pull_draws(g: GossipStage, cfg: MembershipConfig):
     k_pp, k_ppsel = g.keys[3:5]
     key_m = g.key_m
     known_cnt = torch.sum(
-        (key_m >= 0) & (key_rank(key_m) <= RANK_SUSPECT), dim=1)
+        (key_m >= 0) & (key_rank(key_m) <= RANK_SUSPECT), dim=-1)
     # A node that knows only itself (a joiner) syncs at once.
     needs_join = g.participates & (known_cnt <= 1)
     initiate = g.participates & (
         needs_join | bernoulli_mask(k_pp, (n,), 1.0 / cfg.push_pull_ticks)
     )
     partner = sample_probe_targets(k_ppsel, n).long()
-    return partner, initiate & g.participates[partner]
+    return partner, initiate & take_rows(g.participates, partner)
+
+
+def row_of(plane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``plane[idx]`` of ``[*B, n, W]`` for indices ``[*B, ...]``:
+    ``[*B, ..., W]``, each universe reading its own plane."""
+    nb = plane.dim() - 2
+    flat = idx.reshape(*idx.shape[:nb], -1).long()
+    rows = torch.gather(plane, -2, flat[..., None].expand(
+        *flat.shape, plane.shape[-1]))
+    return rows.view(*idx.shape, plane.shape[-1])
 
 
 def push_pull_full(key_rx: torch.Tensor, key_m: torch.Tensor,
                    partner: torch.Tensor, pp_ok: torch.Tensor) -> None:
-    """Merge every exchange into ``key_rx`` ([n + 1, n], the last row a
+    """Merge every exchange into ``key_rx`` ([*B, n + 1, n], the last row a
     sink), in place: the initiator merges the partner's row (pull), the
     partner the initiator's (push), as cellwise maxima."""
-    n = key_m.shape[0]
-    key_rx[:n] = torch.maximum(
-        key_rx[:n], torch.where(pp_ok[:, None], key_m[partner], -1))
+    n = key_m.shape[-1]
+    key_rx[..., :n, :] = torch.maximum(
+        key_rx[..., :n, :],
+        torch.where(pp_ok[..., None], row_of(key_m, partner), -1))
     # Push: a row scatter-max; idle initiators point at the spare row.
     prow = torch.where(pp_ok, partner, n)
-    key_rx.scatter_reduce_(0, prow[:, None].expand(n, n), key_m, "amax")
+    key_rx.scatter_reduce_(-2, prow[..., None].expand(key_m.shape), key_m,
+                           "amax")
+
+
+def cell_rx(batch: tuple, n: int, device) -> torch.Tensor:
+    """A flat ``[*batch, n + 1, n]`` receive plane of -1 (the last row of
+    each universe a sink)."""
+    return torch.full((*batch, (n + 1) * n), -1, dtype=torch.int32,
+                      device=device)
+
+
+def scatter_cells(rx: torch.Tensor, flat: torch.Tensor,
+                  vals: torch.Tensor) -> None:
+    """Scatter-max ``vals`` at the per-universe cell indices ``flat``
+    (``[*B, ...]``, ``recv * n + subj`` or the sink) into the flat receive
+    planes ``rx`` ``[*B, (n + 1) * n]``, in place."""
+    rx.scatter_reduce_(-1, flat.reshape(*rx.shape[:-1], -1),
+                       vals.reshape(*rx.shape[:-1], -1), "amax")
 
 
 def membership_round(state: MembershipState, key_rng: torch.Tensor,
@@ -400,28 +469,29 @@ def membership_round(state: MembershipState, key_rng: torch.Tensor,
         consts = membership_constants(cfg, dev)
     g = gossip_stage(state, key_rng, cfg, consts)
     targets = g.targets
+    batch = tuple(g.key_m.shape[:-2])
 
     # key_rx[r, s] = max key among arriving messages about s at r, in a
     # [n + 1, n] buffer whose last row takes every dropped message.
-    ok3 = g.packet_ok[:, :, None] & g.msg_valid[:, None, :]
-    flat = torch.where(ok3, targets[:, :, None] * n + g.subj[:, None, :],
-                       n * n).reshape(-1)
-    val3 = g.msg_key[:, None, :].expand(n, fanout, m).reshape(-1)
-    key_rx = torch.full(((n + 1) * n,), -1, dtype=torch.int32, device=dev)
-    key_rx.scatter_reduce_(0, flat, val3, "amax")
+    ok3 = g.packet_ok[..., None] & g.msg_valid[..., None, :]
+    flat = torch.where(ok3, targets[..., None] * n + g.subj[..., None, :],
+                       n * n)
+    val3 = g.msg_key[..., None, :].expand(*batch, n, fanout, m)
+    key_rx = cell_rx(batch, n, dev)
+    scatter_cells(key_rx, flat, val3)
     sus_val = torch.where(key_rank(val3) == RANK_SUSPECT, key_inc(val3), -1)
-    sus_inc_rx = torch.full(((n + 1) * n,), -1, dtype=torch.int32,
-                            device=dev)
-    sus_inc_rx.scatter_reduce_(0, flat, sus_val, "amax")
-    key_rx = key_rx.view(n + 1, n)
-    sus_inc_rx = sus_inc_rx.view(n + 1, n)[:n]
+    sus_inc_rx = cell_rx(batch, n, dev)
+    scatter_cells(sus_inc_rx, flat, sus_val)
+    key_rx = key_rx.view(*batch, n + 1, n)
+    sus_inc_rx = sus_inc_rx.view(*batch, n + 1, n)[..., :n, :]
     tx = spend_gossip(g, fanout)
 
     # 2. Push/pull anti-entropy: initiators exchange full state with one
     #    partner; both sides merge the cellwise max of the two rows.
     if cfg.push_pull_enabled:
         push_pull_full(key_rx, g.key_m, *push_pull_draws(g, cfg))
-    return finish_round(state, g, tx, key_rx[:n], sus_inc_rx, cfg, consts)
+    return finish_round(state, g, tx, key_rx[..., :n, :], sus_inc_rx, cfg,
+                        consts)
 
 
 def finish_round(state: MembershipState, g: GossipStage, tx: torch.Tensor,
@@ -443,26 +513,27 @@ def finish_round(state: MembershipState, g: GossipStage, tx: torch.Tensor,
     # 3. Refutation: a node that hears itself suspected or declared dead
     #    at >= its incarnation re-asserts aliveness at accused + 1 and
     #    takes a health penalty (state.go:880-915).
-    self_rx = key_rx.diagonal()
+    self_rx = diag(key_rx)
     accused = torch.where(key_rank(self_rx) >= RANK_SUSPECT,
                           key_inc(self_rx), -1)
     refuting = participates & ~leaving & (accused >= own_inc)
     own_inc = torch.where(refuting, accused + 1, own_inc)
     awareness = torch.clamp(awareness + refuting.to(torch.int32), 0, amax)
     # The self-view never merges from the wire; re-stamp it post-refute.
-    key_rx.diagonal().fill_(-1)
+    diag(key_rx).fill_(-1)
     self_key = torch.where(leaving, make_key(own_inc, RANK_LEFT),
                            make_key(own_inc, RANK_ALIVE))
     old_key = _set_diag(key_m, torch.maximum(
-        key_m.diagonal(), torch.where(present, self_key, -1)))
-    tx = _set_diag(tx, torch.where(refuting, cfg.tx_limit, tx.diagonal()))
+        diag(key_m), torch.where(present, self_key, -1)))
+    tx = _set_diag(tx, torch.where(refuting, cfg.tx_limit, diag(tx)))
 
     # 4. Merge the deliveries into the view.
     new_key = torch.maximum(old_key, key_rx)
     changed = new_key > old_key
     fresh_suspect = changed & (key_rank(new_key) == RANK_SUSPECT)
     suspect_since = torch.where(
-        fresh_suspect, t, torch.where(changed, NEVER, state.suspect_since))
+        fresh_suspect, col(col(t)),
+        torch.where(changed, NEVER, state.suspect_since))
     # A suspect message at the incarnation already suspected is an
     # independent confirmation, re-gossiped when it advances the count.
     confirming = (~changed & (key_rank(old_key) == RANK_SUSPECT)
@@ -476,17 +547,18 @@ def finish_round(state: MembershipState, g: GossipStage, tx: torch.Tensor,
 
     # 5. Probe plane, every ProbeInterval (state.go:214-497).
     if cfg.probe_enabled:
-        is_probe_tick = (t % cfg.probe_interval_ticks) == 0
+        is_probe_tick = col((t % cfg.probe_interval_ticks) == 0)
         ptarget = sample_probe_targets(k_probe, n).long()
-        pt_view = torch.gather(key_m, 1, ptarget[:, None])[:, 0]
+        pt_view = torch.gather(key_m, -1, ptarget[..., None])[..., 0]
         probing = (is_probe_tick & participates & (pt_view >= 0)
                    & (key_rank(pt_view) <= RANK_SUSPECT))
-        p_fail = torch.where(participates[ptarget], consts.p_fail_alive, 1.0)
+        p_fail = torch.where(take_rows(participates, ptarget),
+                             consts.p_fail_alive, 1.0)
         failed = probing & bernoulli_mask(k_pfail, (n,), p_fail)
         # A failed probe matures after the probe cycle plus the timeout
         # scaled by the health score going into it (awareness.go:64).
         can_pend = failed & (state.probe_pending_at == NEVER)
-        matures_at = (t + cfg.probe_interval_ticks
+        matures_at = (col(t) + cfg.probe_interval_ticks
                       + awareness * cfg.probe_timeout_ticks)
         awareness = torch.clamp(
             awareness + failed.to(torch.int32)
@@ -497,14 +569,15 @@ def finish_round(state: MembershipState, g: GossipStage, tx: torch.Tensor,
                                     state.probe_subject)
 
         # A crashed observer's pending probe never matures.
-        mature = (probe_pending_at <= t) & participates
-        mview = torch.gather(key_m, 1, probe_subject.long()[:, None])[:, 0]
+        mature = (probe_pending_at <= col(t)) & participates
+        mview = torch.gather(key_m, -1,
+                             probe_subject.long()[..., None])[..., 0]
         # Suspect at the incarnation on the view, only if it is ALIVE.
         apply_sus = mature & (key_rank(mview) == RANK_ALIVE)
         sus_key = make_key(key_inc(mview), RANK_SUSPECT)
         key_m = _set_cols(key_m, probe_subject, apply_sus, sus_key)
         suspect_since = _set_cols(suspect_since, probe_subject, apply_sus,
-                                  t.expand(n))
+                                  col(t).expand(apply_sus.shape))
         confirms = _set_cols(confirms, probe_subject, apply_sus, 0)
         tx = _set_cols(tx, probe_subject, apply_sus, cfg.tx_limit)
         probe_pending_at = torch.where(mature, NEVER, probe_pending_at)
@@ -514,10 +587,10 @@ def finish_round(state: MembershipState, g: GossipStage, tx: torch.Tensor,
 
     # 6. Suspicion expiry -> DEAD at the suspicion's incarnation
     #    (state.go:1200-1215), Lifeguard-accelerated by confirmations.
-    timeout = consts.timeout[confirms.long()]
-    elapsed = (t - suspect_since).to(torch.float32)
+    timeout = table_at(consts.timeout, confirms)
+    elapsed = (col(col(t)) - suspect_since).to(torch.float32)
     expire = ((key_rank(key_m) == RANK_SUSPECT) & (suspect_since != NEVER)
-              & (elapsed >= timeout) & participates[:, None])
+              & (elapsed >= timeout) & participates[..., None])
     key_m = torch.where(expire, make_key(key_inc(key_m), RANK_DEAD), key_m)
     suspect_since = torch.where(expire, NEVER, suspect_since)
     tx = torch.where(expire, cfg.tx_limit, tx)

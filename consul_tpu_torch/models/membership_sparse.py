@@ -28,6 +28,12 @@ predicate (does any arrival need a slot? does any maturing probe?).  With
 ``amortize`` (the default) the port reads each predicate on the host
 through ``ops.sortmerge.host_cond``: at most two synchronisations a round,
 or one per chunk on the chunked path, counted in ``host_cond.syncs``.
+
+A round also runs a sweep's U universes at once: planes ``[U, n, K]`` and
+``[U, n]``, ``overflow``/``forgotten``/``tick`` ``[U]``, keys ``[U, 2]``;
+every budget (gossip senders, push/pull initiators, the allocation
+substream, the chunk count) stays per universe, and ``base.loss`` and
+``base.suspicion_scale`` may be ``[U]`` knobs.
 """
 
 from __future__ import annotations
@@ -51,10 +57,14 @@ from consul_tpu_torch.models.membership import (
     ground_truth,
     key_inc,
     key_rank,
+    knob_column,
     make_key,
+    row_of,
+    table_at,
+    take_rows,
     top_slots,
 )
-from consul_tpu_torch.models.swim import timeout_table
+from consul_tpu_torch.models.swim import timeout_table, traced_timeout_table
 from consul_tpu_torch.ops import (
     bernoulli_mask,
     compact_to_budget,
@@ -68,6 +78,7 @@ from consul_tpu_torch.ops import (
     split,
 )
 from consul_tpu_torch.ops import sortmerge
+from consul_tpu_torch.ops.knobs import col, is_knob, keep_prob
 
 DEFAULT_KEY = 0  # make_key(0, RANK_ALIVE): the steady-state cell
 
@@ -143,7 +154,7 @@ class SparseMembershipConfig:
                 "int8 awareness plane"
             )
         hi = self.base.suspicion_bounds_ticks[1]
-        if hi >= AGE_CAP:
+        if not is_knob(hi) and hi >= AGE_CAP:
             raise ValueError(
                 f"suspicion timeout bound {hi:.0f} ticks exceeds the "
                 f"age-packed suspect_since saturation AGE_CAP={AGE_CAP}"
@@ -163,6 +174,17 @@ class SparseMembershipState(NamedTuple):
     overflow: torch.Tensor         # int32 scalar
     forgotten: torch.Tensor        # int32 scalar
     tick: torch.Tensor             # int32 scalar
+
+
+def resolve_amortize(cfg: SparseMembershipConfig,
+                     batched: bool = False) -> bool:
+    """The effective dispatch of a config: an explicit ``amortize`` wins;
+    None (auto) amortizes a plain scan and, for a batched sweep
+    (``batched``), runs the allocation branch every tick with no host
+    read, as the reference resolves it for its vmapped programs."""
+    if cfg.amortize is None:
+        return not batched
+    return cfg.amortize
 
 
 def pp_initiator_budget(n: int, push_pull_ticks: int) -> int:
@@ -239,9 +261,9 @@ def settled_of(slots: tuple, row_ids: torch.Tensor = None) -> torch.Tensor:
     ``row_ids`` gives each row's global node id (``arange`` by default)."""
     slot_subj, key_m, since, conf, tx = slots
     if row_ids is None:
-        row_ids = torch.arange(slot_subj.shape[0], dtype=torch.int32,
+        row_ids = torch.arange(slot_subj.shape[-2], dtype=torch.int32,
                                device=slot_subj.device)
-    return ((slot_subj >= 0) & (slot_subj != row_ids[:, None])
+    return ((slot_subj >= 0) & (slot_subj != row_ids[..., None])
             & (key_rank(key_m) == RANK_ALIVE)
             & (tx == 0) & (since < 0) & (conf == 0))
 
@@ -280,28 +302,42 @@ def _claim_one(slots: tuple, want: torch.Tensor, new_subj: torch.Tensor,
     """One bounded-insertion claim per row for ``new_subj`` where ``want``
     (the probe-maturity path): empty slots first, then settled ones.  With
     ``amortize`` the claim runs only when some row wants one (one host
-    read of ``any(want)``).
+    read of ``any(want)`` for every universe).
 
-    Returns (slots', can, pos, forgotten_delta, overflow_delta)."""
+    Returns (slots', can, pos, forgotten_delta, overflow_delta), the
+    deltas per universe."""
     slot_subj, key_m, since, conf, tx = slots
     dev = slot_subj.device
     if amortize and not host_cond(torch.any(want)):
-        n = slot_subj.shape[0]
-        zero = device_scalar(0, torch.int32, dev)
-        return (slots, torch.zeros((n,), dtype=torch.bool, device=dev),
-                torch.full((n,), -1, dtype=torch.int32, device=dev),
+        zero = (device_scalar(0, torch.int32, dev) if want.dim() == 1
+                else torch.zeros(want.shape[:-1], dtype=torch.int32,
+                                 device=dev))
+        return (slots, torch.zeros_like(want),
+                torch.full(want.shape, -1, dtype=torch.int32, device=dev),
                 zero, zero)
     new_ss, planes, can, pos, forgot = insert_rows_one(
         slot_subj, (key_m, since, conf, tx), _PLANE_DEFAULTS, want, new_subj,
         evictable=settled_of(slots, row_ids),
         remembers=(slot_subj >= 0) & (key_m != DEFAULT_KEY),
     )
-    ov = torch.sum(want & ~can, dtype=torch.int32)
+    ov = torch.sum(want & ~can, dim=-1, dtype=torch.int32)
     return (new_ss, *planes), can, pos, forgot, ov
 
 
 def _add_capped(counter: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return torch.clamp(counter, max=COUNTER_CAP) + delta
+
+
+def batch_row_ids(slot_subj: torch.Tensor):
+    """Global node id of every row of a batched table's flattened ``[B*n,
+    K]`` rows (the row index within its universe), None for an unbatched
+    table (the rows are the ids)."""
+    if slot_subj.dim() == 2:
+        return None
+    n = slot_subj.shape[-2]
+    groups = slot_subj[..., 0, 0].numel()
+    return torch.arange(n, dtype=torch.int32,
+                        device=slot_subj.device).repeat(groups)
 
 
 def _merge_arrivals(slots: tuple, recv, subj, val, sus, ok, alloc, n: int,
@@ -310,12 +346,14 @@ def _merge_arrivals(slots: tuple, recv, subj, val, sus, ok, alloc, n: int,
     """The delivery pipeline on ``merge_into_rows``: only settled cells may
     be claimed, evicting one whose key is not the default counts into
     ``forgotten``, allocation-worthy news without a slot into
-    ``overflow``.  ``segments``: the stream is that many equal per-shard
-    streams, each with its own allocation budget (``merge_into_rows``'s
-    ``alloc_segments``).  Returns (slots, key_rx, sus_rx, overflow,
-    forgotten); rows come back sorted, so positional handles must be
-    re-derived."""
+    ``overflow``.  ``segments``: each universe's stream is that many equal
+    per-shard streams, each with its own allocation budget
+    (``merge_into_rows``'s ``alloc_segments``).  Returns (slots, key_rx,
+    sus_rx, overflow, forgotten); rows come back sorted, so positional
+    handles must be re-derived."""
     slot_subj, key_m, since, conf, tx = slots
+    if row_ids is None:
+        row_ids = batch_row_ids(slot_subj)
     new_subj, planes, key_rx, sus_rx, dropped, forgot = merge_into_rows(
         slot_subj, (key_m, since, conf, tx), _PLANE_DEFAULTS,
         recv, subj, val, sus, ok, alloc,
@@ -333,17 +371,21 @@ def _sus_of(v: torch.Tensor) -> torch.Tensor:
     return torch.where(key_rank(v) == RANK_SUSPECT, key_inc(v), -1)
 
 
-def _slice_clamped(a: torch.Tensor, start: int, size: int) -> torch.Tensor:
-    """``a[start:start + size]`` with ``lax.dynamic_slice``'s rule: a start
-    past ``len(a) - size`` is moved back so the slice stays whole."""
-    start = max(0, min(start, a.shape[0] - size))
-    return a[start:start + size]
+def _slice_clamped(a: torch.Tensor, start: int, size: int,
+                   dim: int = 0) -> torch.Tensor:
+    """``a[start:start + size]`` along ``dim`` with ``lax.dynamic_slice``'s
+    rule: a start past ``len - size`` is moved back so the slice stays
+    whole."""
+    start = max(0, min(start, a.shape[dim] - size))
+    return a.narrow(dim, start, size)
 
 
-def _pad_rows(a: torch.Tensor, pad: int, value) -> torch.Tensor:
+def _pad_rows(a: torch.Tensor, pad: int, value, dim: int = 0) -> torch.Tensor:
     if not pad:
         return a
-    return torch.cat((a, a.new_full((pad, *a.shape[1:]), value)))
+    shape = list(a.shape)
+    shape[dim] = pad
+    return torch.cat((a, a.new_full(shape, value)), dim=dim)
 
 
 def _deliver_chunked(slots, targets, packet_ok, msg_subj, msg_key, msg_valid,
@@ -357,13 +399,17 @@ def _deliver_chunked(slots, targets, packet_ok, msg_subj, msg_key, msg_valid,
     partly merged table; gossip chunks start where ``lax.dynamic_slice``
     would put them.  Returns (slots', key_rx, sus_rx, overflow',
     forgotten')."""
-    F = targets.shape[1]
-    M = msg_subj.shape[1]
+    F = targets.shape[-1]
+    M = msg_subj.shape[-1]
     dev = targets.device
-    rx = (torch.full((n, K), -1, dtype=torch.int32, device=dev),
-          torch.full((n, K), -1, dtype=torch.int32, device=dev))
-    dropped = device_scalar(0, torch.int32, dev)
-    forgot = device_scalar(0, torch.int32, dev)
+    batch = tuple(targets.shape[:-2])
+    nb = len(batch)
+    rx = (torch.full((*batch, n, K), -1, dtype=torch.int32, device=dev),
+          torch.full((*batch, n, K), -1, dtype=torch.int32, device=dev))
+    dropped = (device_scalar(0, torch.int32, dev) if not batch
+               else torch.zeros(batch, dtype=torch.int32, device=dev))
+    forgot = dropped.clone()
+    row_ids = batch_row_ids(slots[0])
 
     def merge_chunk(slots, rx, dropped, forgot, recv, subj, val, ok, alloc,
                     sus):
@@ -371,53 +417,57 @@ def _deliver_chunked(slots, targets, packet_ok, msg_subj, msg_key, msg_valid,
         new_subj, planes, rxk, rxs, d, f = merge_into_rows(
             slot_subj, (key_m, since, conf, tx), _PLANE_DEFAULTS,
             recv, subj, val, sus, ok, alloc,
-            evictable=_settled_blocks(), remembers=_remembers_blocks(),
+            evictable=_settled_blocks(row_ids), remembers=_remembers_blocks(),
             default_val=DEFAULT_KEY, allocate=True, rx=rx,
             alloc_budget=_ALLOC_BUDGET, amortize=amortize,
         )
         return ((new_subj, *planes), (rxk, rxs), _add_capped(dropped, d),
                 _add_capped(forgot, f))
 
-    # Gossip leg: sender blocks of B rows.
+    def stream(x):
+        return x.reshape(*batch, -1)
+
+    # Gossip leg: sender blocks of B rows (of each universe).
     C_g = _chunk_count(n * F * M, n)
     B = -(-n // C_g)
     pad = C_g * B - n
-    tgt_p = _pad_rows(targets, pad, 0)
-    pok_p = _pad_rows(packet_ok, pad, False)
-    ms_p = _pad_rows(msg_subj, pad, -1)
-    mk_p = _pad_rows(msg_key, pad, 0)
-    mv_p = _pad_rows(msg_valid, pad, False)
+    tgt_p = _pad_rows(targets, pad, 0, nb)
+    pok_p = _pad_rows(packet_ok, pad, False, nb)
+    ms_p = _pad_rows(msg_subj, pad, -1, nb)
+    mk_p = _pad_rows(msg_key, pad, 0, nb)
+    mv_p = _pad_rows(msg_valid, pad, False, nb)
     for c in range(C_g):
-        tgt, pok, ms, mk, mv = (_slice_clamped(a, c * B, B)
+        tgt, pok, ms, mk, mv = (_slice_clamped(a, c * B, B, nb)
                                 for a in (tgt_p, pok_p, ms_p, mk_p, mv_p))
-        rows_c = tgt.shape[0]
-        recv = tgt[:, :, None].expand(rows_c, F, M).reshape(-1)
-        subj = ms[:, None, :].expand(rows_c, F, M).reshape(-1)
-        val = mk[:, None, :].expand(rows_c, F, M).reshape(-1)
-        ok = (pok[:, :, None] & mv[:, None, :]).reshape(-1)
+        shape3 = (*batch, tgt.shape[nb], F, M)
+        recv = stream(tgt[..., None].expand(shape3))
+        subj = stream(ms[..., None, :].expand(shape3))
+        val = stream(mk[..., None, :].expand(shape3))
+        ok = stream(pok[..., None] & mv[..., None, :])
         slots, rx, dropped, forgot = merge_chunk(
             slots, rx, dropped, forgot, recv, subj, val, ok,
             torch.ones_like(ok), _sus_of)
 
     if pp is not None:
         who, pwho, sel = pp
-        I = who.shape[0]
+        I = who.shape[-1]
         C_p = _chunk_count(I * K, I)
         Bi = -(-I // C_p)
         padi = C_p * Bi - I
-        who_p = _pad_rows(who, padi, 0)
-        pwho_p = _pad_rows(pwho, padi, 0)
-        sel_p = _pad_rows(sel, padi, False)
+        who_p = _pad_rows(who, padi, 0, nb)
+        pwho_p = _pad_rows(pwho, padi, 0, nb)
+        sel_p = _pad_rows(sel, padi, False, nb)
         for c in range(C_p):
-            span = slice(c * Bi, (c + 1) * Bi)
-            who_c, pwho_c, sel_c = who_p[span], pwho_p[span], sel_p[span]
+            who_c, pwho_c, sel_c = (a.narrow(nb, c * Bi, Bi)
+                                    for a in (who_p, pwho_p, sel_p))
             # Pull: the partner's rows flow to the initiator; push: the
             # initiator's rows flow to the partner.
             for src, dst in ((pwho_c, who_c), (who_c, pwho_c)):
-                subj_c = slots[0][src.long()].reshape(-1)
-                val_c = slots[1][src.long()].reshape(-1)
-                recv_c = dst[:, None].expand(-1, K).reshape(-1)
-                ok_c = sel_c[:, None].expand(-1, K).reshape(-1) & (subj_c >= 0)
+                subj_c = stream(row_of(slots[0], src))
+                val_c = stream(row_of(slots[1], src))
+                recv_c = stream(dst[..., None].expand(*dst.shape, K))
+                ok_c = (stream(sel_c[..., None].expand(*sel_c.shape, K))
+                        & (subj_c >= 0))
                 # Settled alive@inc push/pull rows merge but never allocate.
                 alloc_c = key_rank(val_c) >= RANK_SUSPECT
                 slots, rx, dropped, forgot = merge_chunk(
@@ -431,11 +481,11 @@ def _deliver_chunked(slots, targets, packet_ok, msg_subj, msg_key, msg_valid,
 
 def _view_of(slot_subj, slot_key, who: torch.Tensor, subj: torch.Tensor):
     """who's view key of subj, absent cells reading alive@0; ``who`` and
-    ``subj`` broadcast together."""
+    ``subj`` broadcast together (leading with a batched table's axes)."""
     who_b, subj_b = torch.broadcast_tensors(who, subj)
-    K = slot_subj.shape[1]
     slot = row_locate(slot_subj, who_b, subj_b)
-    got = slot_key.reshape(-1)[who_b.long() * K + torch.clamp(slot, min=0)]
+    got = slot_key.reshape(-1)[sortmerge.row_base(slot_subj, who_b)
+                               + torch.clamp(slot, min=0)]
     return torch.where(slot >= 0, got, DEFAULT_KEY)
 
 
@@ -445,22 +495,22 @@ def _merge_step(cfg: SparseMembershipConfig, key_c, since_c, conf_c, tx_c,
     4 of the round; row-local, so the huge-table path applies it block by
     block).  Returns (key, since, confirms, tx, own_inc, awareness)."""
     base = cfg.base
-    sidx = sslot.long()[:, None]
-    self_rx = torch.gather(krx, 1, sidx)[:, 0]
+    sidx = sslot.long()[..., None]
+    self_rx = torch.gather(krx, -1, sidx)[..., 0]
     accused = torch.where(key_rank(self_rx) >= RANK_SUSPECT,
                           key_inc(self_rx), -1)
     refuting = part & ~leave & (accused >= inc_c)
     inc_c = torch.where(refuting, accused + 1, inc_c)
     aw_c = torch.clamp(aw_c + refuting.to(aw_c.dtype), 0,
                        base.profile.awareness_max_multiplier - 1)
-    krx = krx.scatter(1, sidx, torch.full_like(sidx, -1, dtype=krx.dtype))
+    krx = krx.scatter(-1, sidx, torch.full_like(sidx, -1, dtype=krx.dtype))
     self_key = torch.where(leave, make_key(inc_c, RANK_LEFT),
                            make_key(inc_c, RANK_ALIVE))
-    old_key = key_c.scatter(1, sidx, torch.maximum(
-        torch.gather(key_c, 1, sidx)[:, 0], self_key)[:, None])
+    old_key = key_c.scatter(-1, sidx, torch.maximum(
+        torch.gather(key_c, -1, sidx)[..., 0], self_key)[..., None])
     tx_self = torch.where(refuting, base.tx_limit,
-                          torch.gather(tx_c, 1, sidx)[:, 0])
-    tx_c = tx_c.scatter(1, sidx, tx_self.to(tx_c.dtype)[:, None])
+                          torch.gather(tx_c, -1, sidx)[..., 0])
+    tx_c = tx_c.scatter(-1, sidx, tx_self.to(tx_c.dtype)[..., None])
     changed = krx > old_key
     confirming = (~changed & (key_rank(old_key) == RANK_SUSPECT)
                   & (srx >= key_inc(old_key)))
@@ -484,7 +534,8 @@ class SparseConstants(NamedTuple):
     leave_tick: torch.Tensor    # int32[n]
     join_tick: torch.Tensor     # int32[n], all 0
     threshold: torch.Tensor     # int16[k+1]: expiry age after c confirms
-    p_fail_alive: torch.Tensor  # float32 scalar
+    #                             (a swept suspicion_scale: [U, k+1])
+    p_fail_alive: torch.Tensor  # float32 scalar (a swept loss: [U, 1])
 
 
 def threshold_table(base: MembershipConfig) -> torch.Tensor:
@@ -493,8 +544,11 @@ def threshold_table(base: MembershipConfig) -> torch.Tensor:
     it from a constant ``arange``, which XLA folds without the dense
     model's fused multiply-add (``swim.timeout_table(fused=False)``): at
     LOCAL n=100, for one, the dense model expires at 61 ticks and the
-    sparse one at 60."""
-    thr = torch.ceil(timeout_table(base, fused=False)).to(torch.int32)
+    sparse one at 60.  A swept ``suspicion_scale`` gives the traced
+    program's ``[U, k+1]`` table (``swim.traced_timeout_table``)."""
+    table = (traced_timeout_table(base) if is_knob(base.suspicion_scale)
+             else timeout_table(base, fused=False))
+    thr = torch.ceil(table).to(torch.int32)
     return torch.clamp(thr, max=AGE_CAP + 1).to(SINCE_DTYPE)
 
 
@@ -506,13 +560,12 @@ def sparse_constants(cfg: SparseMembershipConfig, device) -> SparseConstants:
         leave_tick=_schedule_array(n, base.leave_at, NEVER, device),
         join_tick=torch.zeros((n,), dtype=torch.int32, device=device),
         threshold=threshold_table(base).to(device),
-        p_fail_alive=device_scalar(base.probe_fail_prob_alive, torch.float32,
-                                   device),
+        p_fail_alive=knob_column(base.probe_fail_prob_alive, device),
     )
 
 
 def _flat_stream(parts):
-    return tuple(torch.cat([p[i] for p in parts]) for i in range(6))
+    return tuple(torch.cat([p[i] for p in parts], dim=-1) for i in range(6))
 
 
 class SparseGossip(NamedTuple):
@@ -542,16 +595,16 @@ def sparse_gossip_stage(state: SparseMembershipState, key_rng: torch.Tensor,
     packets."""
     base = cfg.base
     n, fanout = base.n, base.fanout
-    K = state.key.shape[1]
+    K = state.key.shape[-1]
     M = min(base.piggyback, K)
     dev = state.key.device
     t = state.tick
     keys = split(key_rng, 7).unbind(-2)
     k_tie, k_tgt, k_loss = keys[:3]
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    rows = node_rows(state)
 
     _, leaving, participates = ground_truth(
-        t, consts.fail_tick, consts.leave_tick, consts.join_tick,
+        col(t), consts.fail_tick, consts.leave_tick, consts.join_tick,
         base.leave_grace_ticks)
 
     slot_subj = state.slot_subj
@@ -560,7 +613,7 @@ def sparse_gossip_stage(state: SparseMembershipState, key_rng: torch.Tensor,
     self_slot = row_locate(slot_subj, rows, rows)  # the self slot is pinned
 
     # Self-view re-stamp (leave intent).
-    diag = torch.gather(state.key, 1, self_slot.long()[:, None])[:, 0]
+    diag = torch.gather(state.key, -1, self_slot.long()[..., None])[..., 0]
     diag_val = torch.where(leaving, make_key(own_inc, RANK_LEFT),
                            make_key(own_inc, RANK_ALIVE))
     diag_val = torch.maximum(diag, diag_val)
@@ -572,17 +625,18 @@ def sparse_gossip_stage(state: SparseMembershipState, key_rng: torch.Tensor,
     prio = (torch.where(occupied, tx.to(torch.float32), float("-inf"))
             + owned_uniform_rows(k_tie, n, K))
     sslot = top_slots(prio, M)                            # [n, M]
-    msg_subj = torch.gather(slot_subj, 1, sslot)
-    msg_key = torch.gather(key_m, 1, sslot)
-    msg_valid = ((torch.gather(tx, 1, sslot) > 0) & (msg_subj >= 0)
-                 & participates[:, None])
+    msg_subj = torch.gather(slot_subj, -1, sslot)
+    msg_key = torch.gather(key_m, -1, sslot)
+    msg_valid = ((torch.gather(tx, -1, sslot) > 0) & (msg_subj >= 0)
+                 & participates[..., None])
 
     targets = sample_peers(k_tgt, n, fanout)
-    tgt_view = _view_of(slot_subj, key_m, rows[:, None], targets)
+    tgt_view = _view_of(slot_subj, key_m, rows[..., None], targets)
     tgt_sendable = key_rank(tgt_view) <= RANK_SUSPECT
-    packet_ok = (participates[:, None] & tgt_sendable
-                 & bernoulli_mask(k_loss, (n, fanout), 1.0 - base.loss)
-                 & participates[targets.long()])
+    packet_ok = (participates[..., None] & tgt_sendable
+                 & bernoulli_mask(k_loss, (n, fanout),
+                                  keep_prob(base.loss, 2))
+                 & take_rows(participates, targets))
     return SparseGossip(keys, leaving, participates, key_m, tx, sslot,
                         msg_subj, msg_key, msg_valid, targets, packet_ok)
 
@@ -592,7 +646,7 @@ def sparse_spend(g: SparseGossip, msg_valid: torch.Tensor,
     """The tx plane after the gossip of ``msg_valid`` (the drained slots of
     a row are distinct: gather, subtract, write)."""
     spend = torch.where(msg_valid, fanout, 0).to(g.tx.dtype)
-    tx = g.tx.scatter(1, g.sslot, torch.gather(g.tx, 1, g.sslot) - spend)
+    tx = g.tx.scatter(-1, g.sslot, torch.gather(g.tx, -1, g.sslot) - spend)
     return torch.clamp(tx, min=0)
 
 
@@ -604,13 +658,21 @@ def sparse_push_pull_draws(g: SparseGossip, slot_subj: torch.Tensor,
     k_pp, k_ppsel = g.keys[3:5]
     dead_cnt = torch.sum((slot_subj >= 0)
                          & (key_rank(g.key_m) > RANK_SUSPECT),
-                         dim=1, dtype=torch.int32)
+                         dim=-1, dtype=torch.int32)
     known_cnt = n - dead_cnt
     needs_join = g.participates & (known_cnt <= 1)
     initiate = g.participates & (
         needs_join | bernoulli_mask(k_pp, (n,), 1.0 / base.push_pull_ticks))
     partner = sample_probe_targets(k_ppsel, n)
-    return partner, initiate & g.participates[partner.long()]
+    return partner, initiate & take_rows(g.participates, partner)
+
+
+def node_rows(state: SparseMembershipState) -> torch.Tensor:
+    """int32 ``[*B, n]``: each row's node id, with the state's batch axes
+    (the row index within its universe)."""
+    n = state.own_inc.shape[-1]
+    rows = torch.arange(n, dtype=torch.int32, device=state.own_inc.device)
+    return rows.expand(state.own_inc.shape)
 
 
 def sparse_membership_round(state: SparseMembershipState,
@@ -622,13 +684,13 @@ def sparse_membership_round(state: SparseMembershipState,
     representation (the same draws in the same shapes at K == n)."""
     base = cfg.base
     n, fanout = base.n, base.fanout
-    K = state.key.shape[1]
+    K = state.key.shape[-1]
     M = min(base.piggyback, K)
     dev = state.key.device
     if consts is None:
         consts = sparse_constants(cfg, dev)
-    amortize = cfg.amortize is not False
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    amortize = resolve_amortize(cfg)
+    rows = node_rows(state)
     g = sparse_gossip_stage(state, key_rng, cfg, consts)
     slot_subj, key_m = state.slot_subj, g.key_m
     targets, packet_ok = g.targets, g.packet_ok
@@ -639,17 +701,16 @@ def sparse_membership_round(state: SparseMembershipState,
         # Compacted emission: senders with a live message take one of S_b
         # slots before the [., F, M] expansion; the others spend nothing
         # and count into overflow.
-        has_msg = torch.any(msg_valid, dim=1)
+        has_msg = torch.any(msg_valid, dim=-1)
         sndc, sel_s, sel_mask, missed = compact_to_budget(
             has_msg, gossip_sender_budget(n))
         overflow = _add_capped(overflow, missed)
-        msg_valid = msg_valid & sel_mask[:, None]
-        sndc = sndc.long()
-        g_targets = targets[sndc]
-        g_packet_ok = packet_ok[sndc] & sel_s[:, None]
-        g_msg_subj = msg_subj[sndc]
-        g_msg_key = msg_key[sndc]
-        g_msg_valid = msg_valid[sndc]
+        msg_valid = msg_valid & sel_mask[..., None]
+        g_targets = row_of(targets, sndc)
+        g_packet_ok = row_of(packet_ok, sndc) & sel_s[..., None]
+        g_msg_subj = row_of(msg_subj, sndc)
+        g_msg_key = row_of(msg_key, sndc)
+        g_msg_valid = row_of(msg_valid, sndc)
     else:
         g_targets, g_packet_ok = targets, packet_ok
         g_msg_subj, g_msg_key, g_msg_valid = msg_subj, msg_key, msg_valid
@@ -666,7 +727,7 @@ def sparse_membership_round(state: SparseMembershipState,
             who, sel, _, missed = compact_to_budget(
                 pp_ok, pp_initiator_budget(n, base.push_pull_ticks))
             overflow = _add_capped(overflow, missed)
-            pp_sel = (who, partner[who.long()], sel)
+            pp_sel = (who, take_rows(partner, who), sel)
         else:
             pp_full = (partner, pp_ok)
 
@@ -678,14 +739,19 @@ def sparse_membership_round(state: SparseMembershipState,
             g_msg_valid, pp_sel, n, K, overflow, state.forgotten,
             amortize=amortize)
     else:
-        sg = g_targets.shape[0]
-        val_g = g_msg_key[:, None, :].expand(sg, fanout, M).reshape(-1)
+        batch = tuple(g_targets.shape[:-2])
+        shape3 = (*batch, g_targets.shape[-2], fanout, M)
+
+        def stream(x):
+            return x.reshape(*batch, -1)
+
+        val_g = stream(g_msg_key[..., None, :].expand(shape3))
         parts = [(
-            g_targets[:, :, None].expand(sg, fanout, M).reshape(-1),
-            g_msg_subj[:, None, :].expand(sg, fanout, M).reshape(-1),
+            stream(g_targets[..., None].expand(shape3)),
+            stream(g_msg_subj[..., None, :].expand(shape3)),
             val_g, _sus_of(val_g),
-            (g_packet_ok[:, :, None] & g_msg_valid[:, None, :]).reshape(-1),
-            torch.ones((sg * fanout * M,), dtype=torch.bool, device=dev),
+            stream(g_packet_ok[..., None] & g_msg_valid[..., None, :]),
+            torch.ones(val_g.shape, dtype=torch.bool, device=dev),
         )]
         legs = None
         if pp_sel is not None:
@@ -714,10 +780,11 @@ def push_pull_leg(slot_subj: torch.Tensor, key_m: torch.Tensor,
     Settled alive@inc rows merge into existing slots but never allocate
     (the evict-relearn loop); suspect/dead/left news stays
     allocation-worthy.  Leading dimensions of ``dst``/``src``/``on`` are
-    kept (the sharded plane's shards), the slots flattened after them."""
-    K = slot_subj.shape[1]
-    subj_l = slot_subj[src.long()].flatten(-2)
-    val_l = key_m[src.long()].flatten(-2)
+    kept (a batched table's universes, then the sharded plane's shards),
+    the slots flattened after them."""
+    K = slot_subj.shape[-1]
+    subj_l = row_of(slot_subj, src).flatten(-2)
+    val_l = row_of(key_m, src).flatten(-2)
     return (dst[..., None].expand(*dst.shape, K).flatten(-2), subj_l, val_l,
             torch.full_like(subj_l, -1),
             on[..., None].expand(*on.shape, K).flatten(-2) & (subj_l >= 0),
@@ -735,12 +802,12 @@ def sparse_finish_round(state: SparseMembershipState, g: SparseGossip,
     and suspicion expiry: steps 3-6 of the round."""
     base = cfg.base
     n = base.n
-    K = state.key.shape[1]
+    K = state.key.shape[-1]
     dev = state.key.device
-    amortize = cfg.amortize is not False
+    amortize = resolve_amortize(cfg)
     t = state.tick
     k_probe, k_pfail = g.keys[5:7]
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    rows = node_rows(state)
     amax = base.profile.awareness_max_multiplier - 1
     participates, leaving = g.participates, g.leaving
     slot_subj, key_m, suspect_since, confirms, tx = slots_t
@@ -750,16 +817,16 @@ def sparse_finish_round(state: SparseMembershipState, g: SparseGossip,
     self_slot = row_locate(slot_subj, rows, rows)
 
     # -- 3 + 4. refutation and merge, by row block on huge tables ----------
+    ax = rows.dim() - 1                                    # the node axis
     blocks = sortmerge._row_blocks(n)
     spans = ([(0, n)] if blocks is None
              else [(b * blocks[1], blocks[1]) for b in range(blocks[0])])
     outs = None
     for start, nb in spans:
-        sl = slice(start, start + nb)
-        part = _merge_step(
-            cfg, key_m[sl], suspect_since[sl], confirms[sl], tx[sl],
-            own_inc[sl], awareness[sl], key_rx[sl], sus_rx[sl],
-            self_slot[sl], participates[sl], leaving[sl])
+        part = _merge_step(cfg, *(
+            p.narrow(ax, start, nb) for p in (
+                key_m, suspect_since, confirms, tx, own_inc, awareness,
+                key_rx, sus_rx, self_slot, participates, leaving)))
         if blocks is None:
             outs = part
         else:
@@ -768,22 +835,22 @@ def sparse_finish_round(state: SparseMembershipState, g: SparseGossip,
                              (key_m, suspect_since, confirms, tx, own_inc,
                               awareness))
             for o, p in zip(outs, part):
-                o[sl] = p
+                o.narrow(ax, start, nb).copy_(p)
     key_m, suspect_since, confirms, tx, own_inc, awareness = outs
 
     # -- 5. probes ---------------------------------------------------------
     if base.probe_enabled:
-        is_probe_tick = (t % base.probe_interval_ticks) == 0
+        is_probe_tick = col((t % base.probe_interval_ticks) == 0)
         ptarget = sample_probe_targets(k_probe, n)
         pt_view = _view_of(slot_subj, key_m, rows, ptarget)
         probing = (is_probe_tick & participates
                    & (key_rank(pt_view) <= RANK_SUSPECT))
-        p_fail = torch.where(participates[ptarget.long()],
+        p_fail = torch.where(take_rows(participates, ptarget),
                              consts.p_fail_alive, 1.0)
         failed = probing & bernoulli_mask(k_pfail, (n,), p_fail)
         can_pend = failed & (state.probe_pending_at == NEVER)
         # Widen the int8 awareness before it scales tick arithmetic.
-        matures_at = (t + base.probe_interval_ticks
+        matures_at = (col(t) + base.probe_interval_ticks
                       + awareness.to(torch.int32) * base.probe_timeout_ticks)
         awareness = torch.clamp(
             awareness + failed.to(awareness.dtype)
@@ -792,7 +859,7 @@ def sparse_finish_round(state: SparseMembershipState, g: SparseGossip,
                                        state.probe_pending_at)
         probe_subject = torch.where(can_pend, ptarget, state.probe_subject)
 
-        mature = (probe_pending_at <= t) & participates
+        mature = (probe_pending_at <= col(t)) & participates
         # Locate (or claim) the matured subject's slot.
         mslot = row_locate(slot_subj, rows, probe_subject)
         if K < n:
@@ -804,9 +871,9 @@ def sparse_finish_round(state: SparseMembershipState, g: SparseGossip,
             overflow = _add_capped(overflow, ov)
             # Only the claiming rows shifted; their subject sits at pos.
             mslot = torch.where(can, pos, mslot)
-        mcol = torch.clamp(mslot, min=0).long()[:, None]
+        mcol = torch.clamp(mslot, min=0).long()[..., None]
         mview = torch.where(mslot >= 0,
-                            torch.gather(key_m, 1, mcol)[:, 0], DEFAULT_KEY)
+                            torch.gather(key_m, -1, mcol)[..., 0], DEFAULT_KEY)
         apply_sus = (mature & (mslot >= 0)
                      & (key_rank(mview) == RANK_ALIVE))
         sus_key = make_key(key_inc(mview), RANK_SUSPECT)
@@ -822,9 +889,9 @@ def sparse_finish_round(state: SparseMembershipState, g: SparseGossip,
     # -- 6. suspicion expiry -----------------------------------------------
     # The age plane is the elapsed time and the timeout depends on the
     # confirmations alone: one small table of expiry ages.
-    threshold = consts.threshold[confirms.long()]
+    threshold = table_at(consts.threshold, confirms)
     expire = ((key_rank(key_m) == RANK_SUSPECT) & (suspect_since >= 0)
-              & (suspect_since >= threshold) & participates[:, None])
+              & (suspect_since >= threshold) & participates[..., None])
     key_m = torch.where(expire, make_key(key_inc(key_m), RANK_DEAD), key_m)
     suspect_since = torch.where(expire, AGE_NONE, suspect_since)
     tx = torch.where(expire, base.tx_limit, tx)
@@ -855,26 +922,30 @@ def sparse_membership_counts(state: SparseMembershipState,
     it SUSPECT / DEAD (int32[S] each, empty without tracked subjects), the
     suspect slots (int32), and the float32 gauge ``n_sq - dead_cells``.
     Over ``n_shards`` row blocks the dead cells are summed per block, then
-    across blocks, as the sharded reference's ``psum`` does."""
+    across blocks, as the sharded reference's ``psum`` does.  A batched
+    state gives each output per universe."""
     ranks = key_rank(state.key)
+    batch = tuple(ranks.shape[:-2])
+    cells = (-2, -1)
     if track_idx.numel():
-        hit = state.slot_subj[:, :, None] == track_idx[None, None, :]
-        sus_t = torch.sum(hit & (ranks == RANK_SUSPECT)[:, :, None],
-                          dim=(0, 1), dtype=torch.int32)
-        dead_t = torch.sum(hit & (ranks == RANK_DEAD)[:, :, None],
-                           dim=(0, 1), dtype=torch.int32)
+        hit = state.slot_subj[..., None] == track_idx
+        sus_t = torch.sum(hit & (ranks == RANK_SUSPECT)[..., None],
+                          dim=(-3, -2), dtype=torch.int32)
+        dead_t = torch.sum(hit & (ranks == RANK_DEAD)[..., None],
+                           dim=(-3, -2), dtype=torch.int32)
     else:
-        sus_t = dead_t = torch.zeros((0,), dtype=torch.int32,
+        sus_t = dead_t = torch.zeros((*batch, 0), dtype=torch.int32,
                                      device=ranks.device)
     occupied = state.slot_subj >= 0
     dead = occupied & (ranks > RANK_SUSPECT)
     if n_shards == 1:
-        dead_cells = torch.sum(dead, dtype=torch.float32)
+        dead_cells = torch.sum(dead, dim=cells, dtype=torch.float32)
     else:
-        dead_cells = torch.sum(torch.sum(dead.view(n_shards, -1), dim=1,
-                                         dtype=torch.float32))
+        dead_cells = torch.sum(torch.sum(dead.view(*batch, n_shards, -1),
+                                         dim=-1, dtype=torch.float32), dim=-1)
     return (sus_t, dead_t,
-            torch.sum(occupied & (ranks == RANK_SUSPECT), dtype=torch.int32),
+            torch.sum(occupied & (ranks == RANK_SUSPECT), dim=cells,
+                      dtype=torch.int32),
             n_sq - dead_cells)
 
 

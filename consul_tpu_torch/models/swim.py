@@ -45,7 +45,7 @@ from consul_tpu_torch.ops import (
     sample_probe_targets,
     split,
 )
-from consul_tpu_torch.ops.knobs import is_knob, lift
+from consul_tpu_torch.ops.knobs import col, is_knob, keep_prob, lift
 from consul_tpu_torch.ops.xla_math import integer_pow
 from consul_tpu_torch.protocol import (
     LAN,
@@ -116,18 +116,9 @@ class SwimConfig:
             self.n,
             self.profile.probe_interval_ms,
         )
-        g = self.profile.gossip_interval_ms
-        s = self.suspicion_scale
-        if is_knob(s):
-            # Traced: XLA folds ``ms * s / g`` into ``s * f32(f32(ms) *
-            # f32(1 / g))``, two float32 [U] bounds that are not whole
-            # ticks even at s = 1.
-            inv_g = np.float32(1.0) / np.float32(g)
-            return tuple(
-                s * torch.full((), float(np.float32(np.float32(ms) * inv_g)),
-                               dtype=torch.float32, device=s.device)
-                for ms in (lo_ms, hi_ms))
-        return lo_ms * s / g, hi_ms * s / g
+        return scaled_bounds_ticks(lo_ms, hi_ms,
+                                   self.profile.gossip_interval_ms,
+                                   self.suspicion_scale)
 
     @property
     def probe_fail_prob_alive(self) -> float:
@@ -135,16 +126,37 @@ class SwimConfig:
         direct round trip (2 legs) and each indirect path (4 legs) all
         drop (state.go:326-454).  A swept ``loss`` gives float32 [U]
         tensor arithmetic in the traced program's order."""
-        if is_knob(self.loss):
-            ok = 1.0 - self.loss.to(torch.float32)
-            p_direct = 1.0 - ok * ok
-            p_indirect = 1.0 - integer_pow(ok, 4)
-            return p_direct * integer_pow(p_indirect,
-                                          self.profile.indirect_checks)
-        ok = 1.0 - self.loss
-        p_direct = 1.0 - ok**2
-        p_indirect = 1.0 - ok**4
-        return p_direct * (p_indirect ** self.profile.indirect_checks)
+        return probe_fail_prob(self.loss, self.profile.indirect_checks)
+
+
+def scaled_bounds_ticks(lo_ms: float, hi_ms: float, g: float, s):
+    """The suspicion timeout bounds ``(lo, hi)`` in ticks at scale ``s``:
+    ``ms * s / g`` for a Python ``s``.  A swept ``s`` ([U] tensor) takes
+    the traced order, where XLA folds it into ``s * f32(f32(ms) * f32(1 /
+    g))``: two float32 [U] bounds that are not whole ticks even at s = 1."""
+    if is_knob(s):
+        inv_g = np.float32(1.0) / np.float32(g)
+        return tuple(
+            s * torch.full((), float(np.float32(np.float32(ms) * inv_g)),
+                           dtype=torch.float32, device=s.device)
+            for ms in (lo_ms, hi_ms))
+    return lo_ms * s / g, hi_ms * s / g
+
+
+def probe_fail_prob(loss, indirect_checks: int):
+    """P(a probe of a live target fails) under Bernoulli ``loss``: the
+    direct round trip (2 legs) and each indirect path (4 legs) all drop
+    (state.go:326-454).  A swept ``loss`` gives float32 [U] tensor
+    arithmetic in the traced program's order."""
+    if is_knob(loss):
+        ok = 1.0 - loss.to(torch.float32)
+        p_direct = 1.0 - ok * ok
+        p_indirect = 1.0 - integer_pow(ok, 4)
+        return p_direct * integer_pow(p_indirect, indirect_checks)
+    ok = 1.0 - loss
+    p_direct = 1.0 - ok**2
+    p_indirect = 1.0 - ok**4
+    return p_direct * (p_indirect ** indirect_checks)
 
 
 class SwimState(NamedTuple):
@@ -258,11 +270,6 @@ def timeout_ticks_of(timeout: torch.Tensor,
     return torch.gather(timeout, -1, confirmations.long())
 
 
-def _col(x: torch.Tensor) -> torch.Tensor:
-    """A per-universe scalar (``[*B]``) as a column against ``[*B, n]``."""
-    return x[..., None]
-
-
 def _merge_deliveries(cfg: SwimConfig, t: torch.Tensor, state: SwimState,
                       sus_rx, dead_rx, ref_rx, tx_suspect, tx_dead, tx_refute,
                       is_subject: torch.Tensor):
@@ -292,7 +299,7 @@ def _merge_deliveries(cfg: SwimConfig, t: torch.Tensor, state: SwimState,
 
     view = torch.where(fresh_suspect, VIEW_SUSPECT, view)
     inc_seen = torch.where(fresh_suspect, sus_rx, inc_seen)
-    suspect_since = torch.where(fresh_suspect, _col(t), suspect_since)
+    suspect_since = torch.where(fresh_suspect, col(t), suspect_since)
     rebroadcast_sus = fresh_suspect | gained_conf
     tx_suspect = torch.where(rebroadcast_sus, cfg.tx_limit, tx_suspect)
     sus_era = torch.where(rebroadcast_sus, torch.maximum(sus_era, sus_rx),
@@ -304,9 +311,9 @@ def _merge_deliveries(cfg: SwimConfig, t: torch.Tensor, state: SwimState,
     accused = torch.maximum(sus_rx[..., f], dead_rx[..., f])
     refute_now = subject_live_now & (accused >= state.subject_inc)
     subject_inc = torch.where(refute_now, accused + 1, state.subject_inc)
-    refuting = is_subject & _col(refute_now)
+    refuting = is_subject & col(refute_now)
     tx_refute = torch.where(refuting, cfg.tx_limit, tx_refute)
-    ref_era = torch.where(refuting, _col(subject_inc), ref_era)
+    ref_era = torch.where(refuting, col(subject_inc), ref_era)
 
     # An alive message with a strictly higher incarnation overrides any
     # view, DEAD included, and invalidates queued suspect/dead messages.
@@ -323,7 +330,7 @@ def _merge_deliveries(cfg: SwimConfig, t: torch.Tensor, state: SwimState,
     # Dead overrides suspect/alive at >= the receiver's incarnation
     # (state.go:1228-1232); a live subject refutes its own obituary.
     accept_dead = (dead_rx >= inc_seen) & (view != VIEW_DEAD)
-    accept_dead = accept_dead & (not_subject | _col(~subject_live_now))
+    accept_dead = accept_dead & (not_subject | col(~subject_live_now))
     view = torch.where(accept_dead, VIEW_DEAD, view)
     inc_seen = torch.where(accept_dead, dead_rx, inc_seen)
     suspect_since = torch.where(accept_dead, NEVER, suspect_since)
@@ -379,7 +386,7 @@ def expire_suspicions(cfg: SwimConfig, t, timeout_ticks, view, inc_seen,
     broadcast deadMsg (state.go:1200-1215); returns the updated
     (view, suspect_since, tx_suspect, tx_dead, dead_era)."""
     # int32 difference: with suspect_since == NEVER it is masked below.
-    elapsed = (_col(t) - suspect_since).to(torch.float32)
+    elapsed = (col(t) - suspect_since).to(torch.float32)
     expire = ((view == VIEW_SUSPECT) & (suspect_since != NEVER)
               & (elapsed >= timeout_ticks))
     return (
@@ -396,11 +403,11 @@ def mature_probes(cfg: SwimConfig, t, probe_pending_at, view, inc_seen,
     """Pending failed probes that are due turn an ALIVE view SUSPECT at
     the prober's incarnation and broadcast it (state.go:495-496);
     returns (view, suspect_since, tx_suspect, sus_era, probe_pending_at)."""
-    due = probe_pending_at <= _col(t)
+    due = probe_pending_at <= col(t)
     maturing = due & (view == VIEW_ALIVE)
     return (
         torch.where(maturing, VIEW_SUSPECT, view),
-        torch.where(maturing, _col(t), suspect_since),
+        torch.where(maturing, col(t), suspect_since),
         torch.where(maturing, cfg.tx_limit, tx_suspect),
         torch.where(maturing, inc_seen, sus_era),
         torch.where(due, NEVER, probe_pending_at),
@@ -422,7 +429,7 @@ def swim_round(state: SwimState, key: torch.Tensor, cfg: SwimConfig,
     is_subject = torch.arange(n, dtype=torch.int32, device=dev) == f
     not_subject = ~is_subject
     # A crashed subject neither sends nor receives.
-    participates = ~(is_subject & _col(subject_dead_now))
+    participates = ~(is_subject & col(subject_dead_now))
     can_send = participates
 
     # 1. Gossip fan-out: one compound packet per (sender, target).
@@ -431,10 +438,7 @@ def swim_round(state: SwimState, key: torch.Tensor, cfg: SwimConfig,
                (state.tx_refute, state.ref_era))
     if cfg.delivery == "edges":
         targets = sample_peers(k_gossip, n, fanout)                 # [n, F]
-        keep = 1.0 - cfg.loss
-        if is_knob(keep):
-            keep = lift(keep, 2)
-        wire_ok = bernoulli_mask(k_loss, (n, fanout), keep)
+        wire_ok = bernoulli_mask(k_loss, (n, fanout), keep_prob(cfg.loss, 2))
         wire_ok = wire_ok & torch.gather(
             participates.expand(state.view.shape), -1,
             targets.reshape(*targets.shape[:-2], -1).long(),
@@ -472,7 +476,7 @@ def swim_round(state: SwimState, key: torch.Tensor, cfg: SwimConfig,
 
     # 3. Probe plane, every ProbeInterval ticks: a node probes one
     #    uniform member it does not consider dead (state.go:214-256).
-    is_probe_tick = _col((t % cfg.probe_interval_ticks) == 0)
+    is_probe_tick = col((t % cfg.probe_interval_ticks) == 0)
     probe_target = sample_probe_targets(k_probe, n)
     probed_f = ((probe_target == f) & can_send & not_subject
                 & (view != VIEW_DEAD))
@@ -481,12 +485,12 @@ def swim_round(state: SwimState, key: torch.Tensor, cfg: SwimConfig,
     p_alive = cfg.probe_fail_prob_alive
     p_alive = (lift(p_alive, 1) if is_knob(p_alive)
                else device_scalar(p_alive, torch.float32, dev))
-    p_fail = torch.where(_col(subject_dead_now), 1.0, p_alive)
+    p_fail = torch.where(col(subject_dead_now), 1.0, p_alive)
     probe_failed = (probed_f & bernoulli_mask(k_pfail, (n,), p_fail)
                     & is_probe_tick)
     # A failed probe matures at the end of its cycle, stretched by the
     # prober's health going into it (awareness.go:64 ScaleTimeout).
-    matures_at = (_col(t) + cfg.probe_interval_ticks
+    matures_at = (col(t) + cfg.probe_interval_ticks
                   + state.awareness * cfg.probe_timeout_ticks)
     probe_pending_at = torch.where(
         probe_failed & (state.probe_pending_at == NEVER),

@@ -23,3 +23,17 @@ def lift(x: torch.Tensor, trailing: int) -> torch.Tensor:
     """A ``[*B]`` tensor as ``[*B, 1, ...]`` with ``trailing`` unit axes."""
     return x.reshape(*x.shape, *([1] * trailing))
 
+
+def col(x: torch.Tensor) -> torch.Tensor:
+    """A per-universe value (``[*B]``, or a 0-dim one) as a column against
+    ``[*B, n]`` node planes."""
+    return x[..., None]
+
+
+def keep_prob(loss, trailing: int):
+    """``1 - loss`` as a delivery probability against ``[*B, ...]`` draws
+    with ``trailing`` axes after the universe's: a Python float, or a
+    swept ``[U]`` loss in float32 arithmetic."""
+    keep = 1.0 - loss
+    return lift(keep, trailing) if is_knob(keep) else keep
+

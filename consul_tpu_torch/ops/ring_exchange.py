@@ -11,7 +11,9 @@ one launch of the CUDA kernel ``csrc/ring_exchange.cu`` for all C planes.
 :func:`ring_exchange_planes` is the exchange as the sharded plane calls
 it: C outbox planes ``[D_src, D_dst, budget]`` (any row pitch, as
 ``parallel.shard.pack_outbox`` leaves them) become C inboxes ``[D_dst,
-D_src*budget]``.  :func:`ring_exchange` is the reference's box form,
+D_src*budget]``.  A sweep's planes carry a leading universe axis, ``[U,
+D_src, D_dst, budget]`` -> ``[U, D_dst, D_src*budget]``, and all U
+universes and C planes still go through one launch.  :func:`ring_exchange` is the reference's box form,
 ``box[src, dst, C, budget] -> inbox[dst, src, C, budget]``, as a thin call
 of the same launch.  Each launches the kernel for CUDA tensors and takes
 its plain version (:func:`ring_exchange_planes_plain`,
@@ -46,16 +48,19 @@ def ring_exchange_plain(box: torch.Tensor) -> torch.Tensor:
 
 def ring_exchange_planes_plain(planes) -> tuple:
     """The plain version of :func:`ring_exchange_planes`: per plane, shard
-    ``me`` and hop ``h``, ``out[dst, me*budget:(me+1)*budget] =
-    plane[me, dst]`` with ``dst = (me+h) % D``."""
-    d, _, budget = planes[0].shape
+    ``me`` and hop ``h``, ``out[..., dst, me*budget:(me+1)*budget] =
+    plane[..., me, dst]`` with ``dst = (me+h) % D``, for every universe
+    of a leading ``[U]`` axis at once."""
+    *lead, d, _, budget = planes[0].shape
     outs = []
     for p in planes:
-        out = torch.empty((d, d * budget), dtype=p.dtype, device=p.device)
+        out = torch.empty((*lead, d, d * budget), dtype=p.dtype,
+                          device=p.device)
         for me in range(d):
             for h in range(d):
                 dst = (me + h) % d
-                out[dst, me * budget:(me + 1) * budget] = p[me, dst]
+                out[..., dst, me * budget:(me + 1) * budget] = p[..., me, dst,
+                                                                 :]
         outs.append(out)
     return tuple(outs)
 
@@ -80,10 +85,12 @@ def _check_planes(planes) -> None:
     p0 = planes[0]
     if p0.dtype != torch.int32:
         raise TypeError(f"ring_exchange_planes takes int32, got {p0.dtype}")
-    if p0.dim() != 3 or p0.shape[0] != p0.shape[1] or p0.stride(2) != 1:
+    if (p0.dim() not in (3, 4) or p0.shape[-3] != p0.shape[-2]
+            or p0.stride(-1) != 1):
         raise ValueError(
-            "ring_exchange_planes takes planes [D, D, budget] with unit "
-            f"stride along budget, got {tuple(p0.shape)} {p0.stride()}"
+            "ring_exchange_planes takes planes [D, D, budget] or [U, D, D, "
+            "budget] with unit stride along budget, got "
+            f"{tuple(p0.shape)} {p0.stride()}"
         )
     if p0.device.type not in ("cpu", "cuda"):
         raise ValueError(
@@ -107,42 +114,43 @@ def _launch_lib():
         # and cuts the pointers.
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                       *(ctypes.c_longlong,) * 5, ctypes.c_void_p]
+                       ctypes.c_int, *(ctypes.c_longlong,) * 7,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launch_fn = fn
     return _launch_fn
 
 
-def _launch(src_ptrs, src_strides, out_ptrs, out_strides, d: int,
+def _launch(src_ptrs, src_strides, out_ptrs, out_strides, u: int, d: int,
             budget: int, device: torch.device) -> None:
     """One kernel launch on the current stream of ``device``: plane c's
-    segment ``(me, dst)`` of ``budget`` int32 at ``src_ptrs[c] + me *
-    src_strides[0] + dst * src_strides[1]`` (in words) goes to
-    ``out_ptrs[c] + dst * out_strides[0] + me * out_strides[1]``."""
+    segment ``(u, me, dst)`` of ``budget`` int32 at ``src_ptrs[c] + u *
+    src_strides[0] + me * src_strides[1] + dst * src_strides[2]`` (in
+    words) goes to ``out_ptrs[c] + u * out_strides[0] + dst *
+    out_strides[1] + me * out_strides[2]``."""
     c = len(src_ptrs)
     arr = ctypes.c_void_p * c
     launch = _launch_lib()
     idx = device.index
+    args = (c, arr(*src_ptrs), arr(*out_ptrs), u, d, budget, *src_strides,
+            *out_strides)
     if idx == torch.cuda.current_device():
-        rc = launch(c, arr(*src_ptrs), arr(*out_ptrs), d, budget,
-                    *src_strides, *out_strides,
-                    torch._C._cuda_getCurrentRawStream(idx))
+        rc = launch(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:
         with torch.cuda.device(device):
-            rc = launch(c, arr(*src_ptrs), arr(*out_ptrs), d, budget,
-                        *src_strides, *out_strides,
-                        torch._C._cuda_getCurrentRawStream(idx))
+            rc = launch(*args, torch._C._cuda_getCurrentRawStream(idx))
     if rc != 0:
         raise RuntimeError(f"ring_exchange kernel launch failed: cudaError {rc}")
     ring_exchange.launches += 1
 
 
 def ring_exchange_planes(planes) -> tuple:
-    """int32 outbox planes ``[D_src, D_dst, budget]`` (one stride for all,
-    unit stride along budget) -> inboxes ``[D_dst, D_src*budget]`` with
-    ``out[dst, src*budget:(src+1)*budget] = plane[src, dst]``: the
-    ``lax.all_to_all`` layout, all planes in one launch.  The inboxes are
-    the planes of one ``[C, D, D*budget]`` tensor.
+    """int32 outbox planes ``[D_src, D_dst, budget]`` or, with a sweep's
+    universe axis, ``[U, D_src, D_dst, budget]`` (one shape and stride for
+    all, unit stride along budget) -> inboxes ``[(U,) D_dst, D_src*budget]``
+    with ``out[u, dst, src*budget:(src+1)*budget] = plane[u, src, dst]``:
+    the ``lax.all_to_all`` layout, every universe and plane in one launch.
+    The inboxes are the planes of one ``[C, (U,) D, D*budget]`` tensor.
 
     CPU tensors go through :func:`ring_exchange_planes_plain`; CUDA
     tensors launch the kernel on the current stream or raise."""
@@ -150,14 +158,19 @@ def ring_exchange_planes(planes) -> tuple:
     p0 = planes[0]
     if p0.device.type == "cpu":
         return ring_exchange_planes_plain(planes)
-    d, _, budget = p0.shape
+    *lead, d, _, budget = p0.shape
+    u = lead[0] if lead else 1
     c = len(planes)
-    out = torch.empty((c, d, d * budget), dtype=torch.int32, device=p0.device)
-    if budget and d:
-        base, size = out.data_ptr(), d * d * budget * 4
-        _launch([p.data_ptr() for p in planes], p0.stride()[:2],
-                [base + i * size for i in range(c)], (d * budget, budget),
-                d, budget, p0.device)
+    out = torch.empty((c, *lead, d, d * budget), dtype=torch.int32,
+                      device=p0.device)
+    if budget and d and u:
+        base, size = out.data_ptr(), u * d * d * budget * 4
+        src_u = p0.stride(0) if lead else 0
+        _launch([p.data_ptr() for p in planes],
+                (src_u, *p0.stride()[-3:-1]),
+                [base + i * size for i in range(c)],
+                (d * d * budget, d * budget, budget), u, d, budget,
+                p0.device)
     return out.unbind(0)
 
 
@@ -183,9 +196,9 @@ def ring_exchange(box: torch.Tensor) -> torch.Tensor:
         return inbox
     row = budget * 4
     src, out = box.data_ptr(), inbox.data_ptr()
-    _launch([src + i * row for i in range(c)], box.stride()[:2],
-            [out + i * row for i in range(c)], inbox.stride()[:2], d, budget,
-            box.device)
+    _launch([src + i * row for i in range(c)], (0, *box.stride()[:2]),
+            [out + i * row for i in range(c)], (0, *inbox.stride()[:2]), 1, d,
+            budget, box.device)
     return inbox
 
 

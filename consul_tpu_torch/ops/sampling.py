@@ -196,13 +196,14 @@ def _fanout_keep(fanout, loss, device, trailing: int):
 
 
 def arrival_rate(s_total: torch.Tensor, senders: torch.Tensor, fanout,
-                 loss, n: int) -> torch.Tensor:
+                 loss, n: int, trailing: int = 1) -> torch.Tensor:
     """float32 Poisson intensity per receiver: the other senders' copies,
     ``(s_total - own) * fanout * (1 - loss) / (n - 1)``, in the
-    reference's float32 operation order.  ``senders`` is ``[*B, n]``;
-    ``fanout`` and ``loss`` are Python numbers or ``[*B]`` knobs."""
+    reference's float32 operation order.  ``senders`` is ``[*B, n]`` (or
+    ``[*B, D, blk]`` with ``trailing=2``); ``fanout`` and ``loss`` are
+    Python numbers or ``[*B]`` knobs."""
     dev = senders.device
-    fan, keep = _fanout_keep(fanout, loss, dev, 1)
+    fan, keep = _fanout_keep(fanout, loss, dev, trailing)
     lam = (s_total - senders.to(torch.float32)) * fan
     lam = lam * keep
     return lam / _f32(max(n - 1, 1), dev)

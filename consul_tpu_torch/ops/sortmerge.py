@@ -26,6 +26,12 @@ Translations from XLA that matter for bit-equality:
     two agree;
   * ``mode="drop"`` scatters write into one sentinel slot past the end,
     sliced off; a boolean OR-scatter is ``index_fill_`` of True.
+
+A table may carry leading batch axes ``[*B, n, K]`` (a sweep's U
+universes, each its own table): arrivals and queries then carry the same
+leading axes and address rows ``0..n-1`` of their own universe.  The
+batched calls run as one call over the ``[B*n, K]`` rows, every budget
+per universe, and return per-universe counts ``[*B]``.
 """
 
 from __future__ import annotations
@@ -88,16 +94,31 @@ def sort_slot_rows(slot_subj: torch.Tensor, *planes: torch.Tensor):
     return tuple(torch.gather(p, -1, order) for p in (slot_subj, *planes))
 
 
+def row_base(slot_subj: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
+    """int64 flat index of the first cell of receiver ``recv``'s row in
+    ``slot_subj.reshape(-1)``: ``recv`` (clamped into the table) carries
+    the table's batch axes leading and indexes its own universe's rows."""
+    n, K = slot_subj.shape[-2:]
+    base = torch.clamp(recv.long(), 0, n - 1) * K
+    nb = slot_subj.dim() - 2
+    if nb:
+        g = torch.arange(slot_subj[..., 0, 0].numel(), device=recv.device)
+        base = base + (g * (n * K)).reshape(
+            *slot_subj.shape[:nb], *([1] * (recv.dim() - nb)))
+    return base
+
+
 def row_locate_lo(slot_subj: torch.Tensor, recv: torch.Tensor,
                   subj: torch.Tensor):
     """(slot, lo) of ``subj`` in receiver ``recv``'s sorted row: the slot
     index (-1 when absent) and the binary search's insertion point ``lo``
     (the number of subjects in the row below ``subj``), both int32.
-    ``recv`` and ``subj`` broadcast together."""
-    n, K = slot_subj.shape
+    ``recv`` and ``subj`` broadcast together; for a batched table the
+    broadcast shape leads with its batch axes."""
+    K = slot_subj.shape[-1]
     recv, subj = torch.broadcast_tensors(recv, subj)
     flat = torch.where(slot_subj < 0, _SUBJ_MAX, slot_subj).reshape(-1)
-    base = torch.clamp(recv.long(), 0, n - 1) * K
+    base = row_base(slot_subj, recv)
     q = subj.to(torch.int32)
     lo = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
     hi = torch.full(q.shape, K, dtype=torch.int32, device=q.device)
@@ -321,20 +342,74 @@ def merge_into_rows(
     shard's stream one segment) in one call, exactly as D calls would,
     behind one host read of "does any shard need a slot?".
 
+    A batched table ``[*B, n, K]`` takes streams ``[*B, A]``: each
+    universe's stream is ``alloc_segments`` segments of its own, the
+    predicate is read once for all universes, and ``dropped``/``forgot``
+    come back per universe ``[*B]``.  Array masks are ``[*B, n, K]``; a
+    callable mask sees the flattened ``[B*n, K]`` rows.
+
     Returns ``(slot_subj', planes', key_rx, sus_rx, dropped, forgot)``
     with rows sorted and the rx planes at their final columns.  Never
     writes into its arguments.  Its kernels run inside the profiler range
     ``sortmerge.merge_into_rows``."""
     with torch.profiler.record_function("sortmerge.merge_into_rows"):
-        return _merge_into_rows(
-            slot_subj, planes, defaults, recv, subj, val, sus, ok, alloc,
-            evictable, remembers, default_val, allocate, rx, alloc_budget,
-            amortize, alloc_segments)
+        batch = tuple(slot_subj.shape[:-2])
+        if not batch:
+            return _merge_into_rows(
+                slot_subj, planes, defaults, recv, subj, val, sus, ok, alloc,
+                evictable, remembers, default_val, allocate, rx,
+                alloc_budget, amortize, alloc_segments, None)
+        n, K = slot_subj.shape[-2:]
+        groups = slot_subj[..., 0, 0].numel()
+
+        def rows2(x):
+            return x.reshape(groups * n, K)
+
+        def flat(x):
+            return x.reshape(-1)
+
+        g = torch.arange(groups, device=recv.device).reshape(*batch, 1)
+        recv_f = flat(recv.long() + g * n).to(recv.dtype)
+        sus_f = flat(sus) if isinstance(sus, torch.Tensor) else sus
+        masks = tuple(m if callable(m) else rows2(m)
+                      for m in (evictable, remembers))
+        out = _merge_into_rows(
+            rows2(slot_subj), tuple(rows2(p) for p in planes), defaults,
+            recv_f, flat(subj), flat(val), sus_f, flat(ok), flat(alloc),
+            *masks, default_val, allocate,
+            None if rx is None else tuple(rows2(r) for r in rx),
+            alloc_budget, amortize, alloc_segments * groups, groups)
+        new_subj, new_planes, key_rx, sus_rx, dropped, forgot = out
+        shape = slot_subj.shape
+        return (new_subj.view(shape), tuple(p.view(shape) for p in new_planes),
+                key_rx.view(shape), sus_rx.view(shape), dropped.view(batch),
+                forgot.view(batch))
+
+
+def _group_sum(mask: torch.Tensor, rows: torch.Tensor, groups, n: int):
+    """int32 count of ``mask`` per group of ``n // groups`` table rows
+    (``rows`` the row of each entry): ``[groups]``, or 0-dim when
+    ``groups`` is None (an unbatched table)."""
+    if groups is None:
+        return torch.sum(mask, dtype=torch.int32)
+    gid = torch.where(mask, rows.long() // (n // groups), groups)
+    return torch.zeros(groups + 1, dtype=torch.int32,
+                       device=mask.device).scatter_add_(
+        0, gid.reshape(-1), torch.ones_like(gid, dtype=torch.int32)
+        .reshape(-1))[:groups]
+
+
+def _seg_sum(x: torch.Tensor, groups) -> torch.Tensor:
+    """int32 sum of ``x`` over each of ``groups`` equal contiguous parts
+    (the whole, 0-dim, when ``groups`` is None)."""
+    if groups is None:
+        return torch.sum(x, dtype=torch.int32)
+    return torch.sum(x.reshape(groups, -1), dim=1, dtype=torch.int32)
 
 
 def _merge_into_rows(slot_subj, planes, defaults, recv, subj, val, sus, ok,
                      alloc, evictable, remembers, default_val, allocate, rx,
-                     alloc_budget, amortize, alloc_segments):
+                     alloc_budget, amortize, alloc_segments, groups):
     n, K = slot_subj.shape
     A = recv.shape[0]
     dev = slot_subj.device
@@ -364,17 +439,18 @@ def _merge_into_rows(slot_subj, planes, defaults, recv, subj, val, sus, ok,
     key_rx0, sus_rx0 = _rx_scatter(flat0, val32, susv, n, K, rx)
 
     if amortize and not host_cond(need_any):
-        zero = _fill(0, torch.int32, dev)
+        zero = (_fill(0, torch.int32, dev) if groups is None
+                else torch.zeros(groups, dtype=torch.int32, device=dev))
         return slot_subj, tuple(planes), key_rx0, sus_rx0, zero, zero
     return _allocate_and_merge(
         slot_subj, tuple(planes), defaults, key_rx0, sus_rx0, recv, subj,
         val32, susv, lo0, el0, flat0, unseated, evictable, remembers,
-        allocate, B, alloc_segments)
+        allocate, B, alloc_segments, groups)
 
 
 def _allocate_and_merge(slot_subj, planes, defaults, rxk0, rxs0, recv, subj,
                         val32, susv, lo0, el0, flat0, uns, evictable,
-                        remembers, allocate, B, segments):
+                        remembers, allocate, B, segments, groups):
     """The allocation branch of :func:`merge_into_rows`."""
     n, K = slot_subj.shape
     nk = n * K
@@ -386,8 +462,8 @@ def _allocate_and_merge(slot_subj, planes, defaults, rxk0, rxs0, recv, subj,
     a_seg = uns.shape[0] // segments
     gi, taken, kept, _ = compact_to_budget(
         uns.view(segments, a_seg), B, first=el0.view(segments, a_seg))
-    missed = (torch.sum(el0 & uns, dtype=torch.int32)
-              - torch.sum(kept.reshape(-1) & el0, dtype=torch.int32))
+    missed = (_seg_sum(el0 & uns, groups)
+              - _seg_sum(kept.reshape(-1) & el0, groups))
     seg0 = torch.arange(segments, dtype=torch.int64, device=dev) * a_seg
     gi = (gi.long() + seg0[:, None]).reshape(-1)
     taken = taken.reshape(-1)
@@ -408,9 +484,9 @@ def _allocate_and_merge(slot_subj, planes, defaults, rxk0, rxs0, recv, subj,
     rc = torch.clamp(r.long(), 0, n - 1)
 
     if not allocate:
-        dropped = missed + torch.sum(needs, dtype=torch.int32)
+        dropped = missed + _group_sum(needs, rc, groups, n)
         return (slot_subj, planes, rxk0, rxs0, dropped,
-                _fill(0, torch.int32, dev))
+                torch.zeros_like(dropped))
 
     rows = torch.arange(n, dtype=torch.int64, device=dev)
     cols = torch.arange(K, dtype=torch.int64, device=dev)[None, :]
@@ -457,19 +533,17 @@ def _allocate_and_merge(slot_subj, planes, defaults, rxk0, rxs0, recv, subj,
     tgt = torch.where(can, rc * K + torch.clamp(chosen, 0, K - 1), nk)
     claimed = torch.zeros(nk + 1, dtype=torch.bool, device=dev)
     claimed = claimed.index_fill_(0, tgt, True)[:nk].reshape(n, K)
-    forgot = torch.sum(
+    forgot = _group_sum(
         can & _mask(remembers, slot_subj, planes, n).reshape(-1)[
-            torch.clamp(tgt, max=nk - 1)],
-        dtype=torch.int32)
+            torch.clamp(tgt, max=nk - 1)], rc, groups, n)
     # A seated group whose cell was just claimed loses its news with the
     # cell; it counts into dropped when some member could have allocated
     # (an OR over the el bit of the seated deliveries of each cell).
     el_rx = torch.zeros(nk + 1, dtype=torch.bool, device=dev).index_fill_(
         0, torch.where(el0, flat0, nk), True)[:nk].reshape(n, K)
     dropped = (missed
-               + torch.sum(needs & ~can, dtype=torch.int32)
-               + torch.sum(claimed & (slot_subj >= 0) & el_rx,
-                           dtype=torch.int32))
+               + _group_sum(needs & ~can, rc, groups, n)
+               + _seg_sum(claimed & (slot_subj >= 0) & el_rx, groups))
 
     # Direct-position merge: survivors and the rank-ordered claims are two
     # sorted sequences per row, so each cell's final column is its own
@@ -540,15 +614,33 @@ def insert_rows_one(
     from its row wherever ``want`` is True.
 
     Returns ``(slot_subj', planes', can, pos, forgot)``: ``pos`` is the
-    inserted subject's final column (-1 where no claim happened).  Its
-    kernels run inside the profiler range ``sortmerge.insert_rows_one``."""
+    inserted subject's final column (-1 where no claim happened).  A
+    batched table ``[*B, n, K]`` takes ``[*B, n]`` rows and masks and
+    counts ``forgot`` per universe.  Its kernels run inside the profiler
+    range ``sortmerge.insert_rows_one``."""
     with torch.profiler.record_function("sortmerge.insert_rows_one"):
-        return _insert_rows_one(slot_subj, planes, defaults, want, new_subj,
-                                evictable, remembers)
+        batch = tuple(slot_subj.shape[:-2])
+        if not batch:
+            return _insert_rows_one(slot_subj, planes, defaults, want,
+                                    new_subj, evictable, remembers)
+        n, K = slot_subj.shape[-2:]
+
+        def rows2(x):
+            return x.reshape(-1, K)
+
+        new_ss, new_planes, can, pos, forgot_rows = _insert_rows_one(
+            rows2(slot_subj), tuple(rows2(p) for p in planes), defaults,
+            want.reshape(-1), new_subj.reshape(-1), rows2(evictable),
+            rows2(remembers), per_row=True)
+        shape = slot_subj.shape
+        return (new_ss.view(shape), tuple(p.view(shape) for p in new_planes),
+                can.view(*batch, n), pos.view(*batch, n),
+                torch.sum(forgot_rows.view(*batch, n), dim=-1,
+                          dtype=torch.int32))
 
 
 def _insert_rows_one(slot_subj, planes, defaults, want, new_subj, evictable,
-                     remembers):
+                     remembers, per_row: bool = False):
     n, K = slot_subj.shape
     dev = slot_subj.device
     cdt = _col_dtype(K)
@@ -561,9 +653,9 @@ def _insert_rows_one(slot_subj, planes, defaults, want, new_subj, evictable,
     fsc = torch.argmax(settled.to(torch.uint8), dim=1).to(torch.int32)
     can = want & ((E > 0) | torch.any(settled, dim=1))
     vcol = torch.where(E > 0, K - E, fsc)
-    forgot = torch.sum(
-        can & remembers[rows, torch.clamp(vcol, 0, K - 1).long()],
-        dtype=torch.int32)
+    forgot = can & remembers[rows, torch.clamp(vcol, 0, K - 1).long()]
+    if not per_row:
+        forgot = torch.sum(forgot, dtype=torch.int32)
     _, loq = row_locate_lo(slot_subj, rows, new_subj)
     p = loq - (vcol < loq).to(torch.int32)
     q = cols.expand(n, K)

@@ -22,6 +22,12 @@ in the reference:
 Exactness ladder: D == 1 equals the unsharded scan; overflow == 0 means
 the sharded run delivered every message a single shard would have.  The
 reference's per-shard ``psum``s are sums over the shard axis.
+
+Every twin also runs a sweep's U universes at once (the sweep x shard
+composition): a key batch ``[U, 2]`` over a stacked ``[U, ...]`` state
+gives planes ``[U, D, blk, ...]``, outboxes ``[U, D, D, budget]`` with the
+budgets per universe and per shard, one exchange (one ring launch) a tick
+for every universe and payload plane, and overflow per universe ``[U]``.
 """
 
 from __future__ import annotations
@@ -41,12 +47,15 @@ from consul_tpu_torch.models.membership import (
     MembershipState,
     finish_round,
     gossip_stage,
+    cell_rx,
     key_inc,
     key_rank,
     membership_constants,
     membership_counts,
     push_pull_draws,
     push_pull_full,
+    row_of,
+    scatter_cells,
     spend_gossip,
     track_outputs,
 )
@@ -60,6 +69,7 @@ from consul_tpu_torch.models.membership_sparse import (
     n_squared,
     pp_initiator_budget,
     push_pull_leg,
+    resolve_amortize,
     sparse_constants,
     sparse_finish_round,
     sparse_gossip_stage,
@@ -78,6 +88,7 @@ from consul_tpu_torch.ops import (
     sample_peers_owned,
     split,
 )
+from consul_tpu_torch.ops.knobs import keep_prob
 from consul_tpu_torch.ops.sortmerge import _segmented_sum
 from consul_tpu_torch.parallel.mesh import Mesh, block_size
 
@@ -151,32 +162,59 @@ def exchange_outbox(planes: tuple, backend: str = "alltoall") -> tuple:
     """Move outbox row ``dst`` of every source shard to shard ``dst``.
 
     ``planes`` -- int32 ``[D_src, D_dst, budget]`` outboxes, one per
-    payload column, as :func:`pack_outbox` leaves them.  Returns one
-    ``[D_dst, D_src*budget]`` inbox per plane: row ``dst`` holds what each
+    payload column, as :func:`pack_outbox` leaves them (``[U, D_src,
+    D_dst, budget]`` with a sweep's universe axis).  Returns one ``[(U,)
+    D_dst, D_src*budget]`` inbox per plane: row ``dst`` holds what each
     shard addressed to ``dst``, in source order, -1 slots empty -- the
     reference's all_to_all layout.
 
       alltoall  the plain layout move (what ``lax.all_to_all`` does in
                 the reference), one copy per plane
       ring      the CUDA ring kernel, one launch over all the packed
-                planes in place (the plain version on a CPU tensor)
+                planes and universes in place (the plain version on a
+                CPU tensor)
     """
     _check_backend(backend)
     if backend == "ring":
         return ring_exchange_planes(planes)
-    d, _, budget = planes[0].shape
+    *lead, d, _, budget = planes[0].shape
     return tuple(
-        p.to(torch.int32).transpose(0, 1).reshape(d, d * budget)
+        p.to(torch.int32).transpose(-3, -2).reshape(*lead, d, d * budget)
         for p in planes
     )
 
 
-def _check_mesh_state(plane: torch.Tensor, mesh: Mesh, n: int) -> None:
-    """A state's per-node ``plane`` holds ``n`` rows on the mesh's device."""
+def _check_mesh_state(plane: torch.Tensor, mesh: Mesh, n: int,
+                      nb: int = 0) -> None:
+    """A state's per-node ``plane`` holds ``n`` rows (on axis ``nb``, after
+    a sweep's universe axes) on the mesh's device."""
     if mesh.device is not None and plane.device != mesh.device:
         raise ValueError(f"state on {plane.device} but mesh on {mesh.device}")
-    if plane.shape[0] != n:
-        raise ValueError(f"state holds {plane.shape[0]} nodes, cfg {n}")
+    if plane.dim() <= nb or plane.shape[nb] != n:
+        raise ValueError(f"state holds {tuple(plane.shape)} on node axis "
+                         f"{nb}, cfg n={n}")
+
+
+def _mark(hits: torch.Tensor, flat: torch.Tensor) -> None:
+    """``hits[..., flat] = True`` in place: ``hits`` ``[*B, size + 1]`` (the
+    last slot a sink), ``flat`` ``[*B, ...]`` indexing its own universe's
+    row."""
+    batch = hits.shape[:-1]
+    if batch:
+        g = torch.arange(hits[..., 0].numel(), device=flat.device)
+        flat = flat + g.view(*batch, *([1] * (flat.dim() - len(batch)))
+                             ) * hits.shape[-1]
+    hits.view(-1)[flat.reshape(-1)] = True
+
+
+def _per_tick(batch: tuple, steps: int, *shape, device,
+              dtype=torch.int32) -> torch.Tensor:
+    return torch.empty((*batch, steps, *shape), dtype=dtype, device=device)
+
+
+def _sum_shards(x: torch.Tensor) -> torch.Tensor:
+    """int32 sum over the last (shard) axis: per universe."""
+    return torch.sum(x, dim=-1, dtype=torch.int32)
 
 
 def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
@@ -188,12 +226,15 @@ def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
     arrays do); inside, every plane is ``[D, blk]``.  Returns
     ``(final_state, (infected[steps], overflow))`` with ``overflow`` the
     total outbox budget misses (0 at D == 1 by construction) and the
-    final planes global ``[n]`` again."""
+    final planes global ``[n]`` again.  A key batch ``[U, 2]`` over a
+    stacked ``[U, ...]`` state runs U universes (``overflow`` ``[U]``)."""
     _check_backend(exchange)
     n, fanout = cfg.n, cfg.fanout
     d_shards = mesh.n_shards
     blk = block_size(n, mesh)
-    _check_mesh_state(state.knows, mesh, n)
+    batch = tuple(key.shape[:-1])
+    nb = len(batch)
+    _check_mesh_state(state.knows, mesh, n, nb)
     dev = state.knows.device
     budget = (
         outbox_budget(blk * fanout, d_shards)
@@ -204,64 +245,57 @@ def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
         d_shards, blk
     )
 
-    st = BroadcastState(
-        knows=state.knows.reshape(d_shards, blk),
-        tx_left=state.tx_left.reshape(d_shards, blk),
-        tick=state.tick,
-    )
-    ov = torch.zeros((), dtype=torch.int32, device=dev)
-    infected = torch.empty(steps, dtype=torch.int32, device=dev)
+    st = state
+    ov = torch.zeros(batch, dtype=torch.int32, device=dev)
+    infected = _per_tick(batch, steps, device=dev)
     for t in range(steps):
         k_sel, k_loss = split(fold_in(key, t)).unbind(-2)
         senders = st.knows & (st.tx_left > 0)
+        senders_l = senders.view(*batch, d_shards, blk)
 
         if cfg.delivery == "edges":
             targets = sample_peers_owned(k_sel, rows_g, n, fanout)
-            ok = senders[..., None] & bernoulli_mask_owned(
-                k_loss, rows_g, (fanout,), 1.0 - cfg.loss
+            ok = senders_l[..., None] & bernoulli_mask_owned(
+                k_loss, rows_g, (fanout,), keep_prob(cfg.loss, 3)
             )
-            recv = targets.reshape(d_shards, blk * fanout)
-            okf = ok.reshape(d_shards, blk * fanout)
+            recv = targets.reshape(*batch, d_shards, blk * fanout)
+            okf = ok.reshape(*batch, d_shards, blk * fanout)
             dest = recv.to(torch.int64) // blk
             local = okf & (dest == me)
             # Shard me's local index recv - me*blk is global index recv
             # of the flattened [D*blk] plane.
-            new_knows = deliver_or(st.knows.reshape(n), recv, local)
+            new_knows = deliver_or(st.knows, recv, local)
             (ob_recv,), dropped = pack_outbox(
                 dest, okf & (dest != me), (recv,), d_shards, budget
             )
             (ib_recv,) = exchange_outbox((ob_recv,), backend=exchange)
             new_knows = deliver_or(new_knows, ib_recv, ib_recv >= 0)
-            new_knows = new_knows.view(d_shards, blk)
-            ov = ov + torch.sum(dropped, dtype=torch.int32)
+            ov = ov + _sum_shards(dropped)
         else:
             # Poissonized aggregate delivery: the only cross-shard
             # traffic is the float32 sender count, summed per shard and
             # then across shards as psum does.
             s_total = torch.sum(
-                torch.sum(senders, dim=1, dtype=torch.float32)
-            )
-            lam = arrival_rate(s_total, senders, fanout, cfg.loss, n)
+                torch.sum(senders_l, dim=-1, dtype=torch.float32), dim=-1)
+            lam = arrival_rate(s_total[..., None, None], senders_l, fanout,
+                               cfg.loss, n, trailing=2)
             new_knows = st.knows | poissonized_arrivals_owned(
                 k_loss, rows_g, lam
-            )
+            ).view(st.knows.shape)
 
         st = spend_budget(st, new_knows, senders, cfg)
-        infected[t] = torch.sum(
-            torch.sum(new_knows, dim=1, dtype=torch.int32)
-        )
-    final = BroadcastState(
-        knows=st.knows.reshape(n), tx_left=st.tx_left.reshape(n),
-        tick=st.tick,
-    )
-    return final, (infected, ov)
+        infected[..., t] = torch.sum(
+            torch.sum(new_knows.view(*batch, d_shards, blk), dim=-1,
+                      dtype=torch.int32), dim=-1, dtype=torch.int32)
+    return st, (infected, ov)
 
 
-def _rows(x: torch.Tensor, n_shards: int) -> torch.Tensor:
-    """Every shard's row block of a full-population array, ``[D, blk,
-    ...]``: block ``me`` is what the reference's per-shard
-    ``dynamic_slice`` at ``me * blk`` gives shard ``me``."""
-    return x.reshape(n_shards, -1, *x.shape[1:])
+def _rows(x: torch.Tensor, n_shards: int, nb: int = 0) -> torch.Tensor:
+    """Every shard's row block of a full-population array (node axis
+    ``nb``, after a sweep's universe axes), ``[*B, D, blk, ...]``: block
+    ``me`` is what the reference's per-shard ``dynamic_slice`` at ``me *
+    blk`` gives shard ``me``."""
+    return x.reshape(*x.shape[:nb], n_shards, -1, *x.shape[nb + 1:])
 
 
 def _global_initiators(pp_ok_l: torch.Tensor, partner_l: torch.Tensor,
@@ -277,28 +311,32 @@ def _global_initiators(pp_ok_l: torch.Tensor, partner_l: torch.Tensor,
     ascending and compact down to ``i_slots``.  The selected set is
     therefore the unsharded compaction's prefix at every D.  Returns
     int32 ``(who, pwho, sel, missed)``: initiator and partner ids (``n``
-    on empty slots), the slot mask, and the initiators past the budget."""
+    on empty slots), the slot mask, and the initiators past the budget,
+    per universe of leading ``[*B]`` axes."""
     blk = rows_g.shape[-1]
+    batch = pp_ok_l.shape[:-2]
     li, lt, _, _ = compact_to_budget(pp_ok_l, min(i_slots, blk))
     li = li.long()
-    who_l = torch.where(lt, torch.gather(rows_g, -1, li), n)
+    who_l = torch.where(lt, torch.gather(rows_g.expand(pp_ok_l.shape), -1,
+                                         li), n)
     pwho_l = torch.where(lt, torch.gather(partner_l.to(torch.int32), -1, li),
                          n)
-    who_all, pwho_all = who_l.reshape(-1), pwho_l.reshape(-1)
+    who_all = who_l.reshape(*batch, -1)
+    pwho_all = pwho_l.reshape(*batch, -1)
     gi, sel, _, _ = compact_to_budget(who_all < n, i_slots)
     gi = gi.long()
-    who = torch.where(sel, who_all[gi], n)
-    pwho = torch.where(sel, pwho_all[gi], n)
-    missed = (torch.sum(pp_ok_l, dtype=torch.int32)
-              - torch.sum(sel, dtype=torch.int32))
+    who = torch.where(sel, torch.gather(who_all, -1, gi), n)
+    pwho = torch.where(sel, torch.gather(pwho_all, -1, gi), n)
+    missed = (torch.sum(pp_ok_l, dim=(-2, -1), dtype=torch.int32)
+              - torch.sum(sel, dim=-1, dtype=torch.int32))
     return who, pwho, sel, missed
 
 
 def _route_and_exchange(dest, ok, cols: tuple, d_shards: int, budget: int,
                         exchange: str):
     """Pack each shard's messages to other shards (``dest``/``ok``/``cols``:
-    ``[D, A]``) and exchange the outboxes: returns ``(inbox planes [D,
-    D*budget], dropped [D])``."""
+    ``[*B, D, A]``) and exchange the outboxes: returns ``(inbox planes
+    [*B, D, D*budget], dropped [*B, D])``."""
     me = torch.arange(d_shards, device=dest.device)[:, None]
     packed, dropped = pack_outbox(dest, ok & (dest != me), cols, d_shards,
                                   budget)
@@ -397,12 +435,17 @@ def sharded_membership_round(state: MembershipState, key_rng: torch.Tensor,
     d_shards, blk = plan.n_shards, plan.blk
     dev = state.key.device
     g = gossip_stage(state, key_rng, cfg, plan.consts)
-    shape3 = (n, fanout, m)
-    ok3 = (g.packet_ok[:, :, None] & g.msg_valid[:, None, :]).view(
-        d_shards, -1)
-    recv = g.targets[:, :, None].expand(shape3).reshape(d_shards, -1)
-    subj3 = g.subj[:, None, :].expand(shape3).reshape(d_shards, -1)
-    val3 = g.msg_key[:, None, :].expand(shape3).reshape(d_shards, -1)
+    batch = tuple(g.key_m.shape[:-2])
+    nb = len(batch)
+    shape3 = (*batch, n, fanout, m)
+
+    def per_shard(x):
+        return x.reshape(*batch, d_shards, -1)
+
+    ok3 = per_shard(g.packet_ok[..., None] & g.msg_valid[..., None, :])
+    recv = per_shard(g.targets[..., None].expand(shape3))
+    subj3 = per_shard(g.subj[..., None, :].expand(shape3))
+    val3 = per_shard(g.msg_key[..., None, :].expand(shape3))
     sus3 = torch.where(key_rank(val3) == RANK_SUSPECT, key_inc(val3), -1)
     # Local deliveries scatter straight into the [n + 1, n] receive planes
     # (the last row a sink); remote ones ride the outbox and land from the
@@ -410,21 +453,20 @@ def sharded_membership_round(state: MembershipState, key_rng: torch.Tensor,
     dest = recv // blk
     me = torch.arange(d_shards, device=dev)[:, None]
     local = ok3 & (dest == me)
-    key_rx = torch.full(((n + 1) * n,), -1, dtype=torch.int32, device=dev)
-    sus_rx = torch.full(((n + 1) * n,), -1, dtype=torch.int32, device=dev)
-    flat = torch.where(local, recv * n + subj3, n * n).reshape(-1)
-    key_rx.scatter_reduce_(0, flat, val3.reshape(-1), "amax")
-    sus_rx.scatter_reduce_(0, flat, sus3.reshape(-1), "amax")
+    key_rx = cell_rx(batch, n, dev)
+    sus_rx = cell_rx(batch, n, dev)
+    flat = torch.where(local, recv * n + subj3, n * n)
+    scatter_cells(key_rx, flat, val3)
+    scatter_cells(sus_rx, flat, sus3)
     (ib_recv, ib_subj, ib_val, ib_sus), dropped = _route_and_exchange(
         dest, ok3, (recv, subj3, val3, sus3), d_shards, plan.budget,
         plan.exchange)
-    flat_in = torch.where(ib_recv >= 0, ib_recv.long() * n + ib_subj,
-                          n * n).reshape(-1)
-    key_rx.scatter_reduce_(0, flat_in, ib_val.reshape(-1), "amax")
-    sus_rx.scatter_reduce_(0, flat_in, ib_sus.reshape(-1), "amax")
-    key_rx = key_rx.view(n + 1, n)
+    flat_in = torch.where(ib_recv >= 0, ib_recv.long() * n + ib_subj, n * n)
+    scatter_cells(key_rx, flat_in, ib_val)
+    scatter_cells(sus_rx, flat_in, ib_sus)
+    key_rx = key_rx.view(*batch, n + 1, n)
     tx = spend_gossip(g, fanout)
-    ov = torch.sum(dropped, dtype=torch.int32)
+    ov = _sum_shards(dropped)
 
     if cfg.push_pull_enabled:
         partner, pp_ok = push_pull_draws(g, cfg)
@@ -434,23 +476,24 @@ def sharded_membership_round(state: MembershipState, key_rng: torch.Tensor,
             push_pull_full(key_rx, g.key_m, partner, pp_ok)
         else:
             who, pwho, sel, missed = _global_initiators(
-                _rows(pp_ok, d_shards), _rows(partner, d_shards),
+                _rows(pp_ok, d_shards, nb), _rows(partner, d_shards, nb),
                 plan.rows_g, n, plan.i_slots)
             ov = ov + missed
             # Each id has one owning shard, so the max over the shard axis
             # of "the row where owned, else -1" is its row.
             i_rows, p_rows = (
-                torch.where(sel[:, None],
-                            g.key_m[torch.clamp(ids, max=n - 1).long()], -1)
+                torch.where(sel[..., None],
+                            row_of(g.key_m, torch.clamp(ids, max=n - 1)), -1)
                 for ids in (who, pwho))
             # Pull: an initiator merges its partner's row; push: a partner
             # merges its initiator's.
             for dst, rows in ((who, p_rows), (pwho, i_rows)):
-                tgt = torch.where(sel, dst, n).long()[:, None]
-                key_rx.scatter_reduce_(0, tgt.expand(rows.shape), rows,
+                tgt = torch.where(sel, dst, n).long()[..., None]
+                key_rx.scatter_reduce_(-2, tgt.expand(rows.shape), rows,
                                        "amax")
-    st = finish_round(state, g, tx, key_rx[:n], sus_rx.view(n + 1, n)[:n],
-                      cfg, plan.consts)
+    st = finish_round(state, g, tx, key_rx[..., :n, :],
+                      sus_rx.view(*batch, n + 1, n)[..., :n, :], cfg,
+                      plan.consts)
     return st, (*membership_counts(st.key, plan.track_idx), ov)
 
 
@@ -462,17 +505,18 @@ def sharded_membership_scan(state, key: torch.Tensor, cfg, steps: int,
     (me+1)*blk)`` of every [n, n] plane; each tick is
     :func:`sharded_membership_round`.  Returns ``(final_state,
     (suspecting, dead_known, suspect_cells, known_members, overflow))``
-    with ``overflow`` the total misses."""
-    _check_mesh_state(state.key, mesh, cfg.n)
+    with ``overflow`` the total misses (per universe for a key batch)."""
+    batch = tuple(key.shape[:-1])
+    _check_mesh_state(state.key, mesh, cfg.n, len(batch))
     dev = state.key.device
     plan = sharded_membership_plan(cfg, mesh, dev, tuple(track), exchange)
-    outs = track_outputs(steps, len(track), torch.int32, dev)
-    ov = torch.zeros((), dtype=torch.int32, device=dev)
+    outs = track_outputs(steps, len(track), torch.int32, dev, batch)
+    ov = torch.zeros(batch, dtype=torch.int32, device=dev)
     for t in range(steps):
         state, (*counts, ov_t) = sharded_membership_round(
             state, fold_in(key, t), cfg, plan)
         for o, v in zip(outs, counts):
-            o[t] = v
+            o.select(len(batch), t).copy_(v)
         ov = ov + ov_t
     return state, (*outs, ov)
 
@@ -480,14 +524,18 @@ def sharded_membership_scan(state, key: torch.Tensor, cfg, steps: int,
 def _owned_legs(src_g, recv_ids, sel, plan: ShardPlan):
     """The push/pull legs whose source row each shard owns, compacted to
     ``plan.pp_owned`` a shard: ``(taken, src rows, receivers, missed)``,
-    ``[D, pp_owned]`` each but ``missed`` ``[D]``."""
+    ``[*B, D, pp_owned]`` each but ``missed`` ``[*B, D]``."""
     start = plan.rows_g[:, :1]
-    loc = src_g[None, :] - start
-    own = (loc >= 0) & (loc < plan.blk) & sel[None, :]
+    loc = src_g[..., None, :] - start
+    own = (loc >= 0) & (loc < plan.blk) & sel[..., None, :]
     j, taken, _, missed = compact_to_budget(own, plan.pp_owned)
     j = j.long()
-    rows = torch.clamp(src_g[j] - start, 0, plan.blk - 1) + start
-    return taken, rows, recv_ids[j], missed
+
+    def at(x):
+        return torch.gather(x[..., None, :].expand(own.shape), -1, j)
+
+    rows = torch.clamp(at(src_g) - start, 0, plan.blk - 1) + start
+    return taken, rows, at(recv_ids), missed
 
 
 def sharded_sparse_membership_round(state: SparseMembershipState,
@@ -511,28 +559,30 @@ def sharded_sparse_membership_round(state: SparseMembershipState,
     its predicate once for all shards too: at most 2 host syncs a tick."""
     base = cfg.base
     n, fanout = base.n, base.fanout
-    K = state.key.shape[1]
+    K = state.key.shape[-1]
     m = min(base.piggyback, K)
     d_shards = plan.n_shards
     dev = state.key.device
     start = plan.rows_g[:, :1]                             # [D, 1]
     g = sparse_gossip_stage(state, key_rng, cfg, plan.consts)
     slot_subj, key_m = state.slot_subj, g.key_m
+    batch = tuple(key_m.shape[:-2])
+    nb = len(batch)
 
     # Compacted emission over each shard's own rows.
-    has_msg = _rows(torch.any(g.msg_valid, dim=1), d_shards)
+    has_msg = _rows(torch.any(g.msg_valid, dim=-1), d_shards, nb)
     sndc, sel_s, sel_mask, ov_shards = compact_to_budget(has_msg,
                                                          plan.s_budget)
-    msg_valid = g.msg_valid & sel_mask.reshape(n, 1)
-    src = (sndc + start).reshape(-1).long()                # global rows
-    shape3 = (src.shape[0], fanout, m)
-    val_g = g.msg_key[src][:, None, :].expand(shape3)
-    parts = [tuple(x.reshape(d_shards, -1) for x in (
-        g.targets[src][:, :, None].expand(shape3),
-        g.msg_subj[src][:, None, :].expand(shape3),
+    msg_valid = g.msg_valid & sel_mask.reshape(*batch, n, 1)
+    src = (sndc + start).reshape(*batch, -1)               # global rows
+    shape3 = (*src.shape, fanout, m)
+    val_g = row_of(g.msg_key, src)[..., None, :].expand(shape3)
+    parts = [tuple(x.reshape(*batch, d_shards, -1) for x in (
+        row_of(g.targets, src)[..., None].expand(shape3),
+        row_of(g.msg_subj, src)[..., None, :].expand(shape3),
         val_g, _sus_of(val_g),
-        (g.packet_ok[src] & sel_s.reshape(-1, 1))[:, :, None]
-        & msg_valid[src][:, None, :],
+        (row_of(g.packet_ok, src) & sel_s.reshape(*batch, -1, 1))[..., None]
+        & row_of(msg_valid, src)[..., None, :],
         torch.ones(shape3, dtype=torch.bool, device=dev),
     ))]
     tx = sparse_spend(g, msg_valid, fanout)
@@ -541,8 +591,8 @@ def sharded_sparse_membership_round(state: SparseMembershipState,
     if base.push_pull_enabled:
         partner, pp_ok = sparse_push_pull_draws(g, slot_subj, base)
         who, pwho, sel, missed = _global_initiators(
-            _rows(pp_ok, d_shards), _rows(partner, d_shards), plan.rows_g,
-            n, plan.i_slots)
+            _rows(pp_ok, d_shards, nb), _rows(partner, d_shards, nb),
+            plan.rows_g, n, plan.i_slots)
         overflow = overflow + missed
         # Pull: the partner's slots flow to the initiator; push: the
         # initiator's to the partner.
@@ -563,18 +613,18 @@ def sharded_sparse_membership_round(state: SparseMembershipState,
                                        alloc.to(torch.int32)),
                             d_shards, plan.budget, plan.exchange))
     ib_ok = ib_recv >= 0
-    # Shard me's merge stream: its own messages, then its inbox.
-    stream = tuple(torch.cat(pair, dim=-1).reshape(-1) for pair in (
+    # Shard me's merge stream: its own messages, then its inbox; a
+    # universe's stream is its D shards' streams in shard order.
+    stream = tuple(torch.cat(pair, dim=-1).reshape(*batch, -1) for pair in (
         (torch.where(local, recv, start), torch.where(ib_ok, ib_recv, start)),
         (subj, ib_subj), (val, ib_val), (sus, ib_sus), (local, ib_ok),
         (alloc, ib_alloc > 0)))
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    zero = torch.zeros(batch, dtype=torch.int32, device=dev)
     slots_t, key_rx, sus_rx, ov_merge, forgot = _merge_arrivals(
         (slot_subj, key_m, state.suspect_since, state.confirms, tx), *stream,
-        n, K, zero, zero, amortize=cfg.amortize is not False,
+        n, K, zero, zero, amortize=resolve_amortize(cfg),
         segments=d_shards)
-    overflow = overflow + (torch.sum(ov_shards + dropped, dtype=torch.int32)
-                           + ov_merge)
+    overflow = overflow + (_sum_shards(ov_shards + dropped) + ov_merge)
     forgotten = torch.clamp(state.forgotten, max=COUNTER_CAP) + forgot
     st = sparse_finish_round(state, g, slots_t, key_rx, sus_rx, overflow,
                              forgotten, cfg, plan.consts)
@@ -591,16 +641,19 @@ def sharded_sparse_membership_scan(state, key: torch.Tensor, cfg,
     ``[me*blk, (me+1)*blk)`` of the [n, K] slot planes; each tick is
     :func:`sharded_sparse_membership_round`.  Returns ``(final_state,
     (suspecting, dead_known, suspect_cells, known_members))`` like the
-    unsharded scan; ``state.overflow`` also counts the outbox misses."""
-    _check_mesh_state(state.key, mesh, cfg.base.n)
+    unsharded scan; ``state.overflow`` also counts the outbox misses.  A
+    key batch ``[U, 2]`` over a stacked state runs U universes, their D
+    per-shard merges one ``merge_into_rows`` call of U*D segments."""
+    batch = tuple(key.shape[:-1])
+    _check_mesh_state(state.key, mesh, cfg.base.n, len(batch))
     dev = state.key.device
     plan = sharded_sparse_plan(cfg, mesh, dev, tuple(track), exchange)
-    outs = track_outputs(steps, len(track), torch.float32, dev)
+    outs = track_outputs(steps, len(track), torch.float32, dev, batch)
     for t in range(steps):
         state, counts = sharded_sparse_membership_round(
             state, fold_in(key, t), cfg, plan)
         for o, v in zip(outs, counts):
-            o[t] = v
+            o.select(len(batch), t).copy_(v)
     return state, outs
 
 
@@ -619,7 +672,10 @@ def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
     per-destination outbox with the two columns ``(recv, ev)``
     (``exchange`` = ``"alltoall"`` | ``"ring"``).  D == 1 equals the
     unsharded scan.  Returns ``(final_state, (*outs, outbox_overflow))``
-    with ``outbox_overflow`` the running count of budget misses per tick."""
+    with ``outbox_overflow`` the running count of budget misses per tick.
+    A key batch ``[U, 2]`` over a stacked state runs U universes; the
+    Knuth Poisson loop of the link plane still reads its predicate on the
+    host for all U universes at once."""
     from consul_tpu_torch.geo.model import (
         GeoState,
         bridge_known,
@@ -642,11 +698,13 @@ def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
     spd = S // d_shards
     blk = block_size(n, mesh)
     dev = state.knows.device
+    batch = tuple(key.shape[:-1])
+    nb = len(batch)
     if mesh.device is not None and dev != mesh.device:
         raise ValueError(f"state on {dev} but mesh on {mesh.device}")
-    if state.knows.shape != (n, E):
+    if state.knows.shape != (*batch, n, E):
         raise ValueError(f"state holds {tuple(state.knows.shape)}, cfg "
-                         f"{(n, E)}")
+                         f"{(*batch, n, E)}")
     # A shard emits only the slots of links leaving its own segments.
     budget = outbox_budget(spd * S * U, d_shards)
     consts = geo_constants(cfg, dev)
@@ -657,51 +715,51 @@ def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
     emits = src_owner[None, :] == me                    # [D, S2*U]
 
     outs = (
-        torch.empty((steps, S), dtype=torch.int32, device=dev),
-        *(torch.empty((steps, S2), dtype=torch.int32, device=dev)
-          for _ in range(4)),
-        torch.empty(steps, dtype=torch.int32, device=dev),
-        torch.empty(steps, dtype=torch.int32, device=dev),
+        _per_tick(batch, steps, S, device=dev),
+        *(_per_tick(batch, steps, S2, device=dev) for _ in range(4)),
+        _per_tick(batch, steps, device=dev),
+        _per_tick(batch, steps, device=dev),
     )
-    ob_ov = torch.zeros((), dtype=torch.int32, device=dev)
+    ob_ov = torch.zeros(batch, dtype=torch.int32, device=dev)
     st = state
     for t in range(steps):
         k_lan, k_gossip, k_tgt, k_loss = split(fold_in(key, t), 4).unbind(-2)
-        knows = st.knows.view(d_shards, blk, E)
-        senders, got_lan = lan_arrivals(knows, st.tx_lan.view(d_shards, blk, E),
-                                        rows_g, k_lan, cfg)
-        bk, bk_cnt = bridge_known(knows, cfg)
+        knows = st.knows.view(*batch, d_shards, blk, E)
+        tx_lan_l = st.tx_lan.view(*batch, d_shards, blk, E)
+        senders, got_lan = lan_arrivals(knows, tx_lan_l, rows_g, k_lan, cfg,
+                                        nb)
+        bk, bk_cnt = bridge_known(knows, cfg, nb)
         step = link_plane(st, bk, bk_cnt, k_gossip, k_tgt, k_loss, cfg,
                           consts)
 
-        recv_f = step.recv.reshape(-1)
-        ev_f = step.ev_slot.reshape(-1)
-        okf = step.live.reshape(-1)[None, :] & emits     # [D, S2*U]
-        dest = (recv_f // blk).to(torch.int64)[None, :].expand(d_shards, -1)
+        recv_f = step.recv.reshape(*batch, 1, -1)
+        ev_f = step.ev_slot.reshape(*batch, 1, -1)
+        okf = step.live.reshape(*batch, 1, -1) & emits   # [*B, D, S2*U]
+        dest = (recv_f // blk).to(torch.int64).expand(okf.shape)
         local = okf & (dest == me)
         # Shard me's local index (recv - me*blk)*E + ev is the global
         # index recv*E + ev of the [D*blk*E] plane.
         flat = recv_f.to(torch.int64) * E + ev_f
-        hits = torch.zeros(n * E + 1, dtype=torch.bool, device=dev)
-        hits[torch.where(local, flat[None, :], n * E).reshape(-1)] = True
-        cols = tuple(c[None, :].expand(d_shards, -1) for c in (recv_f, ev_f))
+        hits = torch.zeros((*batch, n * E + 1), dtype=torch.bool, device=dev)
+        _mark(hits, torch.where(local, flat, n * E))
+        cols = tuple(c.expand(okf.shape) for c in (recv_f, ev_f))
         packed, dropped = pack_outbox(dest, okf & (dest != me), cols,
                                       d_shards, budget)
         ib_recv, ib_ev = exchange_outbox(packed, backend=exchange)
-        flat_in = torch.where(ib_recv >= 0,
-                              ib_recv.to(torch.int64) * E + ib_ev, n * E)
-        hits[flat_in.reshape(-1)] = True
-        got_wan = hits[:n * E].view(d_shards, blk, E) & ~knows
-        ob_ov = ob_ov + torch.sum(dropped, dtype=torch.int32)
+        _mark(hits, torch.where(ib_recv >= 0,
+                                ib_recv.to(torch.int64) * E + ib_ev, n * E))
+        got_wan = hits[..., :n * E].view(knows.shape) & ~knows
+        ob_ov = ob_ov + _sum_shards(dropped)
 
-        new_knows, tx_lan = merge(knows, st.tx_lan.view(d_shards, blk, E),
-                                  senders, got_lan | got_wan, cfg)
-        for o, v in zip(outs, (per_segment_done(new_knows, cfg), step.offered,
-                               step.admitted, step.queued, step.overflow,
-                               step.wasted, ob_ov)):
-            o[t] = v
+        new_knows, tx_lan = merge(knows, tx_lan_l, senders,
+                                  got_lan | got_wan, cfg)
+        for o, v in zip(outs, (per_segment_done(new_knows, cfg, nb),
+                               step.offered, step.admitted, step.queued,
+                               step.overflow, step.wasted, ob_ov)):
+            o.select(nb, t).copy_(v)
         st = GeoState(
-            knows=new_knows.view(n, E), tx_lan=tx_lan.view(n, E),
+            knows=new_knows.view(*batch, n, E),
+            tx_lan=tx_lan.view(*batch, n, E),
             ring=step.ring, queue=step.queue, known_hist=step.known_hist,
             ewma=step.ewma, wasted=step.wasted, tick=st.tick + 1,
         )
@@ -725,7 +783,8 @@ def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
     path shares only each shard's ``[W, E]`` sender counts, whose sums are
     exact in any order.  Returns ``(final_state, (*outs, overflow))``
     with the unsharded scan's outputs and the running outbox overflow
-    a tick; D == 1 equals the unsharded scan."""
+    a tick; D == 1 equals the unsharded scan.  A key batch ``[U, 2]`` over
+    a stacked state runs U universes (the planes ``[U, D, blk, ...]``)."""
     from consul_tpu_torch.sim.engine import streamcast_outputs
     from consul_tpu_torch.streamcast.model import (
         _SCHED_SALT,
@@ -746,7 +805,9 @@ def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
     n, w_slots, e_chunks = cfg.n, cfg.window, cfg.chunks
     d_shards = mesh.n_shards
     blk = block_size(n, mesh)
-    _check_mesh_state(state.chunks, mesh, n)
+    batch = tuple(key.shape[:-1])
+    nb = len(batch)
+    _check_mesh_state(state.chunks, mesh, n, nb)
     dev = state.chunks.device
     budget = (outbox_budget(blk * w_slots * cfg.fanout, d_shards)
               if cfg.delivery == "edges" else 1)
@@ -756,17 +817,17 @@ def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
 
     def shard_sum(x):
         # Each shard's sum over its rows, then the sum over shards (psum).
-        return torch.sum(torch.sum(x, dim=1, dtype=x.dtype), dim=0,
+        return torch.sum(torch.sum(x, dim=nb + 1, dtype=x.dtype), dim=nb,
                          dtype=x.dtype)
 
     sched = arrival_arrays(cfg, fold_in(key, _SCHED_SALT))
-    outs = (*streamcast_outputs(cfg, steps, dev),
-            torch.empty(steps, dtype=torch.int32, device=dev))
-    ob_ov = torch.zeros((), dtype=torch.int32, device=dev)
+    outs = (*streamcast_outputs(cfg, steps, dev, batch),
+            _per_tick(batch, steps, device=dev))
+    ob_ov = torch.zeros(batch, dtype=torch.int32, device=dev)
     st = state._replace(
-        chunks=state.chunks.view(d_shards, blk, w_slots, e_chunks),
-        tx_left=state.tx_left.view(d_shards, blk, w_slots),
-        cursor=state.cursor.view(d_shards, blk, w_slots),
+        chunks=state.chunks.view(*batch, d_shards, blk, w_slots, e_chunks),
+        tx_left=state.tx_left.view(*batch, d_shards, blk, w_slots),
+        cursor=state.cursor.view(*batch, d_shards, blk, w_slots),
     )
     for t in range(steps):
         k_sel, k_loss, k_tie, k_chunk = round_keys(fold_in(key, t))
@@ -781,29 +842,30 @@ def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
             local = ok & (dest == me)
             # Shard me's local index of (recv, w, c) is the global index
             # of the flattened [D*blk, W, E] plane.
-            hits = torch.zeros(size + 1, dtype=torch.bool, device=dev)
-            hits[torch.where(local, chunk_index(cfg, recv, wix, cix),
-                             size).reshape(-1)] = True
+            hits = torch.zeros((*batch, size + 1), dtype=torch.bool,
+                               device=dev)
+            _mark(hits, torch.where(local, chunk_index(cfg, recv, wix, cix),
+                                    size))
             packed, dropped = pack_outbox(dest, ok & (dest != me),
                                           (recv, wix, cix), d_shards, budget)
             ib_recv, ib_w, ib_c = exchange_outbox(packed, backend=exchange)
-            hits[torch.where(ib_recv >= 0,
-                             chunk_index(cfg, ib_recv, ib_w, ib_c),
-                             size).reshape(-1)] = True
-            new_chunks = adm.chunks | hits[:size].view(adm.chunks.shape)
-            ob_ov = ob_ov + torch.sum(dropped, dtype=torch.int32)
+            _mark(hits, torch.where(ib_recv >= 0,
+                                    chunk_index(cfg, ib_recv, ib_w, ib_c),
+                                    size))
+            new_chunks = adm.chunks | hits[..., :size].view(adm.chunks.shape)
+            ob_ov = ob_ov + _sum_shards(dropped)
         else:
             lam = aggregate_rate(cfg, held_real, serviced, sel, p_live,
-                                 shard_sum)
+                                 shard_sum, nb)
             new_chunks = adm.chunks | aggregate_arrivals_chunks(
                 cfg, k_loss, rows_g, lam)
         st, out = finish_stage(st, cfg, adm, new_chunks, serviced, cursor,
                                shard_sum)
         for o, v in zip(outs, (*out, ob_ov)):
-            o[t] = v
+            o.select(nb, t).copy_(v)
     final = st._replace(
-        chunks=st.chunks.reshape(n, w_slots, e_chunks),
-        tx_left=st.tx_left.reshape(n, w_slots),
-        cursor=st.cursor.reshape(n, w_slots),
+        chunks=st.chunks.reshape(*batch, n, w_slots, e_chunks),
+        tx_left=st.tx_left.reshape(*batch, n, w_slots),
+        cursor=st.cursor.reshape(*batch, n, w_slots),
     )
     return StreamcastState(*final), outs

@@ -16,7 +16,10 @@ the Vivaldi-derived latencies) and the same over 8 logical shards with the
 ring transport; then the sharded membership twins over 8 logical shards
 with the ring transport beside the unsharded runs: the sparse model at
 100k nodes cold (its first 30 ticks, unsharded and sharded), at 1M cold
-(10 ticks) and the dense model at 16384 nodes (10 ticks); then the
+(10 ticks) and the dense model at 16384 nodes (10 ticks), and the sparse
+100k cold study's loss ladder (0.01 to 0.04) as one U = 4 sweep, unsharded
+and over 8 logical shards with the ring transport (the sweep x shard
+composition, its first 30 ticks); then the
 streamcast slice: the reference's 1M sustained-load study (4-chunk
 events, 8 slots, aggregate, 100 ticks) with the uniform and the pipeline
 policy, and ``stream100k``'s edges configuration at 1M nodes over 8
@@ -62,6 +65,7 @@ DENSE_N = 16384
 MULTIDC_STEPS = 120
 GEO_STEPS = 160
 SPARSE_COLD_STEPS = 30   # bench.py's cold run at 100k
+SWEEP_LOSSES = (0.01, 0.02, 0.03, 0.04)  # the composed run's loss ladder
 STREAM_STEPS = 100       # the reference's 1M sustained-load study
 STREAM_SHARD_STEPS = 60
 CURVE_RATES = (0.1, 0.3, 0.6, 1.2)  # bench.py's _streaming_curve
@@ -209,6 +213,7 @@ def main() -> int:
         geo_ab_config,
         stream100k_config,
     )
+    from consul_tpu_torch.sweep import Universe
     from consul_tpu_torch.sweep.presets import stream_load_curve
 
     card = subprocess.run(
@@ -255,11 +260,15 @@ def main() -> int:
             entry(cfg, steps, warmup=False, **kw)
         return run
 
-    def swept(uni):
+    def swept(uni, **kw):
         def run(steps):
             run_sweep(dataclasses.replace(uni, steps=steps), warmup=False,
-                      device=dev)
+                      device=dev, **kw)
         return run
+
+    ladder = Universe(entrypoint="sparse", cfg=sparse[100_000],
+                      steps=SPARSE_COLD_STEPS, seeds=(0,) * 4, track=(42,),
+                      knobs=("base.loss",), values=(SWEEP_LOSSES,))
 
     # The steady state: bench.py's converged state after 8 warm-up ticks.
     warm, _ = sparse_membership_scan(
@@ -309,6 +318,10 @@ def main() -> int:
         ("membership_dense_16k_d8_ring",
          study(run_membership, dense, track=(42,), **ring8),
          MEMBERSHIP_WINDOW, MEMBERSHIP_WINDOW),
+        ("membership_sparse_100k_cold_sweep_u4", swept(ladder),
+         SPARSE_COLD_STEPS, MEMBERSHIP_WINDOW),
+        ("membership_sparse_100k_cold_sweepshard_u4_d8_ring",
+         swept(ladder, **ring8), SPARSE_COLD_STEPS, MEMBERSHIP_WINDOW),
         ("stream_1m_aggregate_uniform",
          study(run_streamcast, stream["uniform"]), STREAM_STEPS,
          MEMBERSHIP_WINDOW),

@@ -225,15 +225,17 @@ def membership_scan(state, key: torch.Tensor, cfg: MembershipConfig,
     for each tracked subject j the OTHER nodes viewing j SUSPECT / DEAD,
     the global count of suspect cells, and the sum of membership-list
     sizes.  Returns (final_state, (suspecting, dead_known, suspect_cells,
-    known_members))."""
+    known_members)).  Batches over a key batch as
+    :func:`broadcast_scan` does."""
     dev = key.device
     consts = membership_constants(cfg, dev)
     track_idx = torch.tensor(track, dtype=torch.int64).to(dev)
-    outs = track_outputs(steps, len(track), torch.int32, dev)
+    batch = tuple(key.shape[:-1])
+    outs = track_outputs(steps, len(track), torch.int32, dev, batch)
     for t in range(steps):
         state = membership_round(state, fold_in(key, t), cfg, consts)
         for o, v in zip(outs, membership_counts(state.key, track_idx)):
-            o[t] = v
+            o.select(len(batch), t).copy_(v)
     return state, outs
 
 
@@ -243,17 +245,19 @@ def sparse_membership_scan(state, key: torch.Tensor, cfg, steps: int,
     subject id, so they do not depend on the row order.  ``known_members``
     is the float32 gauge ``f32(n) * n - dead_cells`` (n**2 overflows int32
     at the scales this model exists for; exact while the dead-cell count
-    stays below 2**24)."""
+    stays below 2**24).  Batches over a key batch as
+    :func:`broadcast_scan` does."""
     dev = key.device
     consts = sparse_constants(cfg, dev)
     track_idx = torch.tensor(track, dtype=torch.int32).to(dev)
     n_sq = n_squared(cfg.base.n, dev)
-    outs = track_outputs(steps, len(track), torch.float32, dev)
+    batch = tuple(key.shape[:-1])
+    outs = track_outputs(steps, len(track), torch.float32, dev, batch)
     for t in range(steps):
         state = sparse_membership_round(state, fold_in(key, t), cfg, consts)
         for o, v in zip(outs, sparse_membership_counts(state, track_idx,
                                                        n_sq)):
-            o[t] = v
+            o.select(len(batch), t).copy_(v)
     return state, outs
 
 
@@ -692,27 +696,46 @@ def run_sweep(universe, warmup: bool = True, telemetry: bool = False,
     The wall time is the host clock around the batched scan, fenced by
     ``torch.cuda.synchronize()`` and the copy of the outputs to the host;
     with ``warmup`` the sweep runs once untimed first.  Runs on CUDA
-    unless ``device`` says otherwise.  ``mesh=``/``exchange=`` (the
-    sweep x shard composition) and ``telemetry=`` wait for later slices
-    and raise."""
+    unless ``device`` (or the mesh's device) says otherwise.
+
+    ``mesh=`` composes the universe axis with the node shards (the sweep
+    x shard composition of ``make_sweep``): the report gains
+    ``outbox_overflow``, the overflow per universe, and ``devices``, the
+    shard count; ``exchange`` picks the outbox transport.  ``telemetry=``
+    waits for a later slice and raises."""
     from consul_tpu_torch.sweep.frontier import summarize_sweep
     from consul_tpu_torch.sweep.universe import make_sweep, stacked_init
 
     sweep = make_sweep(universe.entrypoint, universe.U, telemetry, mesh,
                        exchange)
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
     keys = universe.keys(dev)
     values = universe.knob_arrays(dev)
 
     def scan(state, k):
-        return sweep(state, k, values, universe.cfg, universe.steps,
-                     universe.knobs, universe.track)
+        out = sweep(state, k, values, universe.cfg, universe.steps,
+                    universe.knobs, universe.track)
+        if mesh is None:
+            return out
+        final, outs, overflow = out
+        if isinstance(outs, torch.Tensor):
+            outs = (outs,)
+        return final, (*outs, overflow)
 
     _, outs, wall = _timed(lambda: stacked_init(universe, dev), scan, keys,
                            dev, warmup)
+    overflow = None
+    if mesh is not None:
+        *outs, overflow = outs
+        outs = tuple(outs)
     report = summarize_sweep(
         universe, outs[0] if universe.entrypoint == "broadcast" else outs,
         wall)
     report.device = _device_name(dev)
     report.outputs = outs
+    if overflow is not None:
+        report.outbox_overflow = overflow
+        report.devices = mesh.n_shards
     return report

@@ -542,7 +542,9 @@ def aggregate_rate(cfg: StreamcastConfig, held_real: torch.Tensor,
     cidx = torch.arange(cfg.chunks, dtype=_I32, device=dev)
     onehot = held_real & (sel[..., None] == cidx)
     contrib = (serviced[..., None] & onehot).to(torch.float32)
-    s_tot = over_nodes(node_sum(contrib), nb, 1)              # [W, E]
+    # The node axes (one, or the sharded plane's [D, blk]) sit between
+    # the universe axes and the trailing [W, E].
+    s_tot = over_nodes(node_sum(contrib), nb, contrib.dim() - nb - 2)
     fanout, trailing = cfg.fanout, contrib.dim() - nb
     if is_knob(fanout):
         fanout = lift(fanout.to(device=dev, dtype=torch.float32), trailing)

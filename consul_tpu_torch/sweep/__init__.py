@@ -1,8 +1,11 @@
 """Universe sweeps: U studies of one family as one batched program.
 
 The port of ``consul_tpu/sweep``.  The scan entrypoints of
-``consul_tpu_torch.sim.engine`` (broadcast, SWIM, Lifeguard, streamcast,
-geo) run over a leading universe axis of size U, so one tick advances U
+``consul_tpu_torch.sim.engine`` (broadcast, SWIM, Lifeguard, dense and
+sparse membership, streamcast, geo) run over a leading universe axis of
+size U, and with ``mesh=`` over the sharded twins of
+``consul_tpu_torch.parallel`` (the sweep x shard composition: U
+universes x D logical shards in one batched tick), so one tick advances U
 universes with one set of kernel launches: seeds for error bars,
 protocol knobs (loss, suspicion-timeout scale, aggregate fanout,
 offered load) for tuning curves, and fault-schedule severities for
@@ -10,7 +13,7 @@ coverage matrices.
 
   universe.py   the :class:`Universe` spec (per-universe keys, ``[U]``
                 knob tensors vs static structure) and :func:`make_sweep`,
-                one batched program per (entrypoint, U)
+                one batched program per (entrypoint, U, mesh, exchange)
   frontier.py   per-universe metric reduction into a
                 :class:`SweepReport` + Pareto-frontier extraction, and
                 the streaming curve's points and knee
@@ -18,10 +21,13 @@ coverage matrices.
                 streaming ladders and the WAN brownout ladder
   optimize.py   successive-halving/bisection generations over a grid
                 preset's knob space, reusing one sweep program
+  compose.py    ``python -m consul_tpu_torch.sweep.compose``: the
+                composed plane's memory per universe on the card and a
+                composed sparse sweep's rounds/s and overflow
 
 ``sim.engine.run_sweep`` runs a :class:`Universe` and returns its
-:class:`SweepReport`.  The membership entrypoints and the sweep x shard
-composition (``mesh=``) wait for a later slice and raise.
+:class:`SweepReport` (with ``outbox_overflow`` and ``devices`` on the
+composed plane).  ``telemetry=`` waits for a later slice and raises.
 """
 
 from consul_tpu_torch.sweep.frontier import (

@@ -142,6 +142,12 @@ class SweepReport:
     # The stacked per-tick host outputs the metrics were reduced from
     # ([U, steps, ...], run_sweep sets them).
     outputs: tuple = None
+    # Composed (mesh=) sweeps only: the per-universe overflow (outbox
+    # budget misses plus the family's own budget deferrals); None for an
+    # unsharded sweep.
+    outbox_overflow: "np.ndarray" = None
+    # Composed sweeps: the mesh's shard count (1 for unsharded).
+    devices: int = 1
 
     @property
     def universes_per_sec(self) -> float:
@@ -213,7 +219,7 @@ class SweepReport:
                 "defined": int(ok.size),
             }
 
-        return {
+        out = {
             "entrypoint": self.entrypoint,
             "n": self.n,
             "universes": self.U,
@@ -227,6 +233,12 @@ class SweepReport:
             ),
             "metrics": {k: _stats(v) for k, v in self.metrics.items()},
         }
+        if self.outbox_overflow is not None:
+            # The composed plane's overflow column, never silent.
+            out["devices"] = self.devices
+            out["overflow_total"] = int(
+                np.asarray(self.outbox_overflow).sum())
+        return out
 
 
 def _scalar(v):

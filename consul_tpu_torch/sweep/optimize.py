@@ -1,7 +1,7 @@
 """Closed-loop autotuning: drive ``make_sweep`` from the frontier.
 
 The port of ``consul_tpu/sweep/optimize.py`` (host logic over the port's
-``run_sweep``; the composed ``mesh=`` plane waits for a later slice).
+``run_sweep``, on the composed ``mesh=`` plane too).
 
 A grid preset (``sweep/presets.py``) names a knob SPACE — the paths,
 the bounds, and the resolution its ladder was drawn at — and running
@@ -73,6 +73,8 @@ class OptimizeResult:
     grid_evaluations: int        # the preset's own fixed-grid cost
     points_per_gen: int
     history: list                # per-generation {points, objective}
+    overflow_total: int = None   # composed runs: the summed overflow of
+    #                              every generation
 
     def summary(self) -> dict:
         """JSON-ready summary of the answer and its trail."""
@@ -94,6 +96,9 @@ class OptimizeResult:
             "evaluations_saved_vs_grid": (
                 self.grid_evaluations - self.evaluations
             ),
+            # A composed search must say when a generation overflowed.
+            **({"overflow_total": self.overflow_total}
+               if self.overflow_total is not None else {}),
         }
 
 
@@ -165,6 +170,8 @@ def optimize_sweep(
     max_generations: int = 12,
     evaluate=None,
     device=None,
+    mesh=None,
+    exchange: str = "alltoall",
 ) -> OptimizeResult:
     """Find the objective's optimum (or knee) over a grid preset's
     knob space in a few batched generations.
@@ -176,7 +183,9 @@ def optimize_sweep(
     a typo costs no sweep).  ``knee_at`` switches to knee mode:
     the answer is the largest value of the single varying knob whose
     objective stays <= knee_at.  Every generation is one
-    ``run_sweep`` on ``device`` (CUDA unless given).
+    ``run_sweep`` on ``device`` (CUDA unless given); ``mesh=``/
+    ``exchange=`` run every generation on the composed plane, and the
+    answer's ``overflow_total`` sums their overflow.
 
     ``evaluate`` (tests): a callable ``(values_rows: tuple) ->
     float[U]`` replacing the real run_sweep evaluator — the optimizer
@@ -257,6 +266,7 @@ def optimize_sweep(
         per_axis = {p: g for p in varying}
         U = g ** k
 
+    overflow_seen: list = []   # composed generations' overflow
     if evaluate is None:
         def evaluate(values_rows):
             from consul_tpu_torch.sim import engine
@@ -264,7 +274,11 @@ def optimize_sweep(
             gen = _rebuild(
                 universe, dict(zip(universe.knobs, values_rows)), U
             )
-            rep = engine.run_sweep(gen, warmup=False, device=device)
+            rep = engine.run_sweep(gen, warmup=False, device=device,
+                                   mesh=mesh, exchange=exchange)
+            if rep.outbox_overflow is not None:
+                overflow_seen.append(
+                    int(np.asarray(rep.outbox_overflow).sum()))
             return np.asarray(rep.metrics[objective], float)
 
     box = {p: list(bounds[p]) for p in varying}
@@ -426,4 +440,5 @@ def optimize_sweep(
         grid_evaluations=_grid_cost(universe),
         points_per_gen=U,
         history=history,
+        overflow_total=(sum(overflow_seen) if overflow_seen else None),
     )

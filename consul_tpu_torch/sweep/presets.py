@@ -308,3 +308,27 @@ def make_preset(name: str, universes=None, seed: int = 0) -> Universe:
             f"unknown sweep preset {name!r} (have: {sorted(PRESETS)})"
         )
     return PRESETS[name](universes=universes, seed=seed)
+
+
+def main(argv=None) -> int:
+    """``python -m consul_tpu_torch.sweep.presets [NAME ...]``: each named
+    preset (default: all) at its own size on the card, run once to warm
+    up and once timed; one JSON line a preset with its wall seconds and
+    aggregate rounds/s."""
+    import json
+    import sys
+
+    from consul_tpu_torch.sim.engine import run_sweep
+
+    names = (sys.argv[1:] if argv is None else argv) or list(PRESETS)
+    for name in names:
+        rep = run_sweep(make_preset(name), warmup=True)
+        print(json.dumps({"preset": name, "universes": rep.U, "n": rep.n,
+                          "ticks": rep.steps, "wall_s": rep.wall_s,
+                          "rounds_per_sec": rep.rounds_per_sec,
+                          "device": rep.device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -35,6 +35,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from consul_tpu_torch.device import resolve_device
+from consul_tpu_torch.parallel import shard
 from consul_tpu_torch.geo.model import geo_init
 from consul_tpu_torch.models import (
     broadcast_init,
@@ -43,6 +44,7 @@ from consul_tpu_torch.models import (
     swim_init,
 )
 from consul_tpu_torch.models.lifeguard import lifeguard_init
+from consul_tpu_torch.models.membership_sparse import resolve_amortize
 from consul_tpu_torch.ops import PRNGKey, fold_in
 from consul_tpu_torch.sim import engine
 from consul_tpu_torch.streamcast.model import streamcast_init
@@ -90,14 +92,56 @@ class _EntrypointSpec:
 
     name: str
     init: Callable[[Any, Any], Any]     # (cfg, device) -> state
-    # (state, keys, cfg, steps, track) -> (final, outs); None until a
-    # later slice brings the entrypoint's batched scan.
-    call: Optional[Callable]
+    call: Callable      # (state, keys, cfg, steps, track) -> (final, outs)
     base_cfg: Callable[[Any], Any]      # cfg -> the profile/n config
     knob_paths: frozenset
     aggregate_only: frozenset           # legal only under aggregate
     fault_paths: bool = False           # "faults.…" severity paths legal
     bandwidth_paths: bool = False       # "faults.bandwidth[*].…" legal
+    # The sweep x shard seam: the batched sharded twin
+    # (parallel/shard.py), normalized to
+    #   (state, keys, cfg, steps, track, mesh, exchange)
+    #     -> (final, outs_core, overflow[U])
+    # with ``outs_core`` exactly the unsharded sweep's outputs, so U = 1 x
+    # D = 1 composed equals the unsharded sweep.  None: no sharded twin
+    # (swim, lifeguard), and make_sweep(mesh=) rejects the entrypoint.
+    sharded: Optional[Callable] = None
+
+
+# --- sharded-twin adapters (the reference's _sharded_* seam) -------------
+
+
+def _sharded_broadcast(s, k, c, steps, track, mesh, ex):
+    final, (infected, ov) = shard.sharded_broadcast_scan(s, k, c, steps,
+                                                         mesh, ex)
+    return final, infected, ov
+
+
+def _sharded_membership(s, k, c, steps, track, mesh, ex):
+    final, (*core, ov) = shard.sharded_membership_scan(s, k, c, steps, mesh,
+                                                       track, ex)
+    return final, tuple(core), ov
+
+
+def _sharded_sparse(s, k, c, steps, track, mesh, ex):
+    final, outs = shard.sharded_sparse_membership_scan(s, k, c, steps, mesh,
+                                                       track, ex)
+    # The sparse plane carries its overflow in the state (model budgets
+    # and outbox misses, one count as unsharded).
+    return final, outs, final.overflow
+
+
+def _sharded_streamcast(s, k, c, steps, track, mesh, ex):
+    final, (*core, ov_t) = shard.sharded_streamcast_scan(s, k, c, steps,
+                                                         mesh, ex)
+    # The outbox overflow rides the per-tick outputs; the last tick holds
+    # the total.
+    return final, tuple(core), ov_t[..., -1]
+
+
+def _sharded_geo(s, k, c, steps, track, mesh, ex):
+    final, (*core, ov_t) = shard.sharded_geo_scan(s, k, c, steps, mesh, ex)
+    return final, tuple(core), ov_t[..., -1]
 
 
 SWEEP_ENTRYPOINTS: dict = {
@@ -125,22 +169,26 @@ SWEEP_ENTRYPOINTS: dict = {
         base_cfg=lambda c: c,
         knob_paths=frozenset({"loss"}),
         aggregate_only=frozenset({"fanout"}),
+        sharded=_sharded_broadcast,
     ),
-    # The membership families validate their knobs like the others but
-    # have no batched scan yet: make_sweep raises for them.
     "membership": _EntrypointSpec(
         name="membership", init=lambda c, d: membership_init(c, device=d),
-        call=None,
+        call=lambda s, k, c, steps, track: engine.membership_scan(
+            s, k, c, steps, track),
         base_cfg=lambda c: c,
         knob_paths=frozenset({"loss", "suspicion_scale"}),
         aggregate_only=frozenset(),
+        sharded=_sharded_membership,
     ),
     "sparse": _EntrypointSpec(
         name="sparse",
-        init=lambda c, d: sparse_membership_init(c, device=d), call=None,
+        init=lambda c, d: sparse_membership_init(c, device=d),
+        call=lambda s, k, c, steps, track: engine.sparse_membership_scan(
+            s, k, c, steps, track),
         base_cfg=lambda c: c.base,
         knob_paths=frozenset({"base.loss", "base.suspicion_scale"}),
         aggregate_only=frozenset(),
+        sharded=_sharded_sparse,
     ),
     # The sustained-load plane: ``rate`` is the offered load (each
     # universe's arrival schedule derives from its own key), so one
@@ -155,6 +203,7 @@ SWEEP_ENTRYPOINTS: dict = {
                               "size_tail", "hotspot"}),
         aggregate_only=frozenset({"fanout"}),
         fault_paths=True,
+        sharded=_sharded_streamcast,
     ),
     # The geo/WAN plane: LAN/WAN loss and the controller's EWMA gain are
     # rate knobs; the brownout severity rides faults.bandwidth[*].scale.
@@ -166,16 +215,9 @@ SWEEP_ENTRYPOINTS: dict = {
         aggregate_only=frozenset(),
         fault_paths=True,
         bandwidth_paths=True,
+        sharded=_sharded_geo,
     ),
 }
-
-
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the sweep plane yet: the membership and "
-        "sparse entrypoints and the sweep x shard composition (mesh=, "
-        "exchange=) come in the next slice of the port"
-    )
 
 
 _SEGMENT_RE = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*)(?:\[([0-9]+)\])?$")
@@ -423,35 +465,40 @@ def stacked_init(universe: Universe, device=None):
 
 def make_sweep(entrypoint: str, U: int, telemetry: bool = False,
                mesh=None, exchange: str = "alltoall"):
-    """The batched scan program for (entrypoint, U):
+    """The batched scan program for (entrypoint, U, mesh, exchange):
 
         sweep(stacked_state, keys, values, cfg, steps, knobs, track)
-          -> (stacked_final, stacked_outs)
+          -> (stacked_final, stacked_outs[, overflow])
 
     ``stacked_state`` is the ``[U, ...]`` state (:func:`stacked_init`),
     ``keys`` ``int64[U, 2]``, ``values`` one ``[U]`` tensor per path of
     the static ``knobs`` tuple.  Each tick advances all U universes with
-    one set of tensor ops; no Python loop runs over the universes.  One
-    callable per (entrypoint, U), cached.  ``telemetry=``, ``mesh=`` and
-    ``exchange=`` and the membership/sparse entrypoints wait for later
-    slices and raise."""
+    one set of tensor ops; no Python loop runs over the universes.
+
+    ``mesh=`` composes the universe axis with the node shards: each tick
+    runs the entrypoint's sharded twin (``parallel/shard.py``) over ``[U,
+    D, blk, ...]`` planes, with the outbox budgets per universe and per
+    shard and one exchange for all U universes (``exchange``:
+    ``"alltoall"`` | ``"ring"``, the ring one kernel launch a tick).  The
+    composed program returns a third element, the overflow per universe
+    ``int32[U]``; U = 1 x D = 1 equals the unsharded sweep.  Swim and
+    lifeguard have no sharded twin and reject ``mesh=``.
+
+    A sparse sweep's ``amortize=None`` resolves to False (the allocation
+    branch every tick, no host read), as the reference resolves it for
+    its vmapped programs; an explicit True reads its predicates once for
+    all U universes.  One callable per (entrypoint, U, mesh, exchange),
+    cached.  ``telemetry=`` waits for a later slice and raises."""
     if telemetry:
         raise NotImplementedError(
             "telemetry= is not ported yet (the in-scan metrics come in a "
             "later slice)"
         )
-    if mesh is None and exchange != "alltoall":
-        raise ValueError(
-            f"exchange={exchange!r} requires mesh= (the outbox "
-            "transport only exists on the composed multi-chip plane)"
-        )
-    if mesh is not None:
-        raise _later_slice("the sweep x shard composition (mesh=)")
-    return _make_sweep(entrypoint, U)
+    return _make_sweep(entrypoint, U, mesh, exchange)
 
 
 @functools.lru_cache(maxsize=None)
-def _make_sweep(entrypoint: str, U: int):
+def _make_sweep(entrypoint: str, U: int, mesh, exchange: str):
     if entrypoint not in SWEEP_ENTRYPOINTS:
         raise ValueError(
             f"unknown sweep entrypoint {entrypoint!r} "
@@ -460,8 +507,23 @@ def _make_sweep(entrypoint: str, U: int):
     if U < 1:
         raise ValueError(f"U must be >= 1, got {U}")
     spec = SWEEP_ENTRYPOINTS[entrypoint]
-    if spec.call is None:
-        raise _later_slice(f"the {entrypoint!r} entrypoint")
+    if mesh is None:
+        if exchange != "alltoall":
+            raise ValueError(
+                f"exchange={exchange!r} requires mesh= (the outbox "
+                "transport only exists on the composed multi-chip plane)"
+            )
+    elif spec.sharded is None:
+        raise ValueError(
+            f"entrypoint {entrypoint!r} has no sharded twin — sweep x "
+            "shard composition covers: "
+            f"{sorted(n for n, s in SWEEP_ENTRYPOINTS.items() if s.sharded)}"
+        )
+    elif exchange not in shard.EXCHANGE_BACKENDS:
+        raise ValueError(
+            f"unknown exchange backend {exchange!r}; choose 'alltoall' or "
+            "'ring'"
+        )
 
     def sweep(stacked_state, keys, values, cfg, steps, knobs=(), track=()):
         if keys.shape != (U, 2):
@@ -475,9 +537,16 @@ def _make_sweep(entrypoint: str, U: int):
                     f"knob {path!r} needs a [{U}] {knob_dtype(path)} "
                     f"tensor, got {tuple(v.shape)} {v.dtype}"
                 )
+        if entrypoint == "sparse" and cfg.amortize is None:
+            cfg = dataclasses.replace(cfg, amortize=resolve_amortize(
+                cfg, batched=True))
         ucfg = apply_knobs(cfg, knobs, tuple(values))
-        return spec.call(stacked_state, keys, ucfg, steps, track)
+        if mesh is None:
+            return spec.call(stacked_state, keys, ucfg, steps, track)
+        return spec.sharded(stacked_state, keys, ucfg, steps, track, mesh,
+                            exchange)
 
-    sweep.__name__ = f"sweep_{entrypoint}_U{U}"
+    tag = "" if mesh is None else f"_D{mesh.n_shards}"
+    sweep.__name__ = f"sweep_{entrypoint}_U{U}{tag}"
     return sweep
 

@@ -305,3 +305,95 @@ def test_exchange_outbox_ring_equals_alltoall_at_five_planes():
     for a, b in zip(exchange_outbox(planes, backend="ring"),
                     exchange_outbox(planes, backend="alltoall")):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The universe axis: a sweep's [U, D, D, budget] planes in one exchange.
+# ---------------------------------------------------------------------------
+
+
+def _packed_universe_planes(u, d, c, budget, pitch, seed):
+    """C planes ``[U, D, D, budget]`` as views of the one ``(C, U, D,
+    pitch)`` buffer ``pack_outbox`` leaves for leading dims ``[U, D]``,
+    with numpy copies of their values."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(-2 ** 31, 2 ** 31 - 1, (c, u, d, pitch)).astype(np.int32)
+    planes = tuple(torch.from_numpy(buf)[i, ..., :d * budget].unflatten(
+        -1, (d, budget)) for i in range(c))
+    return planes, [buf[i, ..., :d * budget].reshape(u, d, d, budget)
+                    for i in range(c)]
+
+
+_JAX_UNIVERSE_RUNS = {}
+
+
+def _jax_universe_alltoall(u, d, c):
+    """The JAX package's all_to_all exchange of C planes inside shard_map,
+    vmapped over U universes as its composed sweep runs it."""
+    if (u, d, c) in _JAX_UNIVERSE_RUNS:
+        return _JAX_UNIVERSE_RUNS[u, d, c]
+    from jax.experimental.shard_map import shard_map
+
+    def body(*planes):
+        return tuple(p[None] for p in j_exchange_outbox(
+            tuple(p[0] for p in planes), backend="alltoall"))
+
+    shards = shard_map(
+        body, mesh=make_mesh(jax.devices()[:d]),
+        in_specs=(P(NODE_AXIS),) * c, out_specs=(P(NODE_AXIS),) * c,
+        check_rep=False)
+    run = jax.jit(jax.vmap(shards))
+    _JAX_UNIVERSE_RUNS[u, d, c] = run
+    return run
+
+
+@pytest.mark.parametrize("u", [1, 3])
+@pytest.mark.parametrize("c", [1, 5])
+def test_ring_planes_universe_axis_is_the_all_to_all_layout(u, c):
+    """``[U, D, D, budget]`` planes, read where ``pack_outbox`` leaves them
+    (universe stride ``D*pitch``) at outbox_pitch and at an odd pitch,
+    become ``[U, D_dst, D_src*budget]`` inboxes equal to the JAX
+    package's all_to_all under vmap, universe by universe; the CPU
+    wrapper launches nothing."""
+    d, budget = 4, 62
+    run = _jax_universe_alltoall(u, d, c)
+    for pitch in (outbox_pitch(d, budget), d * budget + 1):
+        planes, want = _packed_universe_planes(u, d, c, budget, pitch,
+                                               u * 7 + c)
+        assert planes[0].stride() == (d * pitch, pitch, budget, 1)
+        ref = run(*(jnp.asarray(w) for w in want))
+        before = ring_exchange.launches
+        for got in (ring_exchange_planes_plain(planes),
+                    ring_exchange_planes(planes),
+                    exchange_outbox(planes, backend="ring"),
+                    exchange_outbox(planes, backend="alltoall")):
+            assert len(got) == c
+            for g, r in zip(got, ref):
+                assert g.dtype == torch.int32 and g.shape == (u, d, d * budget)
+                np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+        assert ring_exchange.launches == before
+
+
+@pytest.mark.parametrize("c", [1, 5])
+def test_ring_planes_u1_equals_the_plain_call(c):
+    """A universe axis of 1 gives the 3-D call's inboxes."""
+    d, budget = 8, 62
+    planes, _ = _packed_universe_planes(1, d, c, budget,
+                                        outbox_pitch(d, budget), c)
+    for a, b in zip(ring_exchange_planes(planes),
+                    ring_exchange_planes(tuple(p[0] for p in planes))):
+        assert torch.equal(a[0], b)
+
+
+def test_ring_planes_universe_axis_checks_its_input():
+    """Planes of one exchange share their universe stride (and every other
+    stride); a 5-D plane is no plane."""
+    planes, _ = _packed_universe_planes(2, 2, 2, 8, outbox_pitch(2, 8), 0)
+    with pytest.raises(ValueError, match="stride"):
+        ring_exchange_planes((planes[0], planes[1].contiguous()))
+    other = torch.zeros((2, 3, 2, 2, 8), dtype=torch.int32)[:, 0]
+    assert other.shape == planes[0].shape
+    with pytest.raises(ValueError, match="stride"):
+        ring_exchange_planes((planes[0], other))
+    with pytest.raises(ValueError, match=r"\[U, D, D, budget\]"):
+        ring_exchange_planes((planes[0][None],))

@@ -21,7 +21,8 @@ are equal.)
   reference's on the same outputs;
 * batching is real: one tick at U = 8 runs as many ATen ops (views
   aside) as at U = 1;
-* the entrypoints and options of later slices raise.
+* what waits for a later slice (telemetry) raises, and the
+  composition's rejections use the reference's messages.
 """
 
 import dataclasses
@@ -625,26 +626,31 @@ def test_geo_sweep_host_syncs_per_tick():
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_sweep("membership", 2)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_sweep("sparse", 2)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_sweep("swim", 2, mesh=object())
+    """What still waits for a later slice raises: ``telemetry=``; the
+    composition's own rejections use the reference's messages (no sharded
+    twin for swim and lifeguard, a transport without a mesh)."""
+    from consul_tpu_torch.parallel import mesh_for
+
     with pytest.raises(NotImplementedError, match="later slice"):
         make_sweep("swim", 2, telemetry=True)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        make_sweep("sparse", 2, telemetry=True, mesh=mesh_for(2, "cpu"))
+    for entrypoint in ("swim", "lifeguard"):
+        with pytest.raises(ValueError, match="no sharded twin"):
+            make_sweep(entrypoint, 2, mesh=mesh_for(1, "cpu"))
     with pytest.raises(ValueError, match="requires mesh="):
         make_sweep("swim", 2, exchange="ring")
     uni = Universe(entrypoint="swim", cfg=SwimConfig(n=64, subject=1),
                    steps=2, seeds=(0, 1))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        run_sweep(uni, warmup=False, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="no sharded twin"):
+        run_sweep(uni, warmup=False, mesh=mesh_for(2, "cpu"), device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         run_sweep(uni, warmup=False, telemetry=True, device="cpu")
     with pytest.raises(ValueError, match="unknown sweep entrypoint"):
         make_sweep("multidc", 2)
     assert make_sweep("swim", 3) is make_sweep("swim", 3)
     assert make_sweep("swim", 3) is not make_sweep("swim", 2)
+    assert make_sweep("membership", 2) is not make_sweep("sparse", 2)
     with pytest.raises(ValueError, match="built for U=3"):
         make_sweep("swim", 3)(stacked_init(uni, "cpu"), uni.keys("cpu"), (),
                               uni.cfg, 2)
