@@ -82,8 +82,8 @@ Run from the root of the repository.  Phases, each fatal on failure:
      on every tick with no outbox overflow, one ring launch a tick
      (counted, and seen by ``torch.profiler``), and the window's
      accounting identity; ``event100k`` over 8 shards with both
-     transports (equal, overflow 0), ``dev3``, ``probe1k`` over 8 shards
-     with the ring (all ten crashes detected); ``stream100k`` (aggregate,
+     transports (equal, overflow 0), ``dev3`` (``probe1k`` over 8 shards
+     runs in phase 12); ``stream100k`` (aggregate,
      150 ticks) for each policy with the accounting identity and events
      delivered; the reference's own 1M study (``tests/test_streamcast.py``:
      4-chunk events, 8 slots, rate 0.1, aggregate, 100 ticks) for the
@@ -125,8 +125,26 @@ Run from the root of the repository.  Phases, each fatal on failure:
      100k study's rounds/s; ``sweep_dense_16k_u2`` (U = 2, 10 ticks) with
      its peak memory; and the five composed families (broadcast, dense,
      sparse, streamcast, geo) at U = 2 x D = 2 with a knob varying, both
-     transports, card == CPU on every tick's outputs, the final state and
-     the overflow.
+     transports, with the telemetry trace on: card == CPU on every tick's
+     outputs and trace, the final state and the overflow.
+ 12. the telemetry plane and the command line: ``run_scenario(...,
+     telemetry=True)`` on the presets at their published sizes
+     (``event100k`` and ``probe1k`` over 8 logical shards with each
+     transport, ``stream100k`` over 8 shards with the ring, ``geo100k``,
+     ``dev3``): every output equal to the same preset without telemetry
+     (phase 9's runs, phase 6's unsharded probe1k, whose outputs the dense
+     twin equals with no overflow, all ten crashes detected; geo100k's twin
+     here), the ring trace equal to the
+     alltoall trace, one ring launch a tick (counted, and seen by
+     ``torch.profiler``), the bridged snapshot and the columns that restate
+     an output (``consul.broadcast.infected``, the geo link census, the
+     membership cells, the stream's counters) equal to it, host syncs
+     unchanged; the 1M SWIM headline (60 ticks) with the trace on and off,
+     outputs and final state equal and no more host synchronisations
+     (``torch.cuda.set_sync_debug_mode``); the seven families at n=4096
+     (dense 512) with the trace, card == CPU; and ``python -m
+     consul_tpu_torch.cli sim event100k --devices 8 --exchange ring
+     --metrics`` in a process of its own, printing run_scenario's JSON.
 
 The next-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -135,6 +153,7 @@ where CUDA is not available or the port is missing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -407,8 +426,9 @@ def phase_slice(dev, card: str) -> int:
     from consul_tpu_torch.protocol import LAN
 
     def drive(cfg, steps, **kw):
-        # One untimed pass, then the counted and timed pass.
-        run_broadcast(cfg, steps, seed=0, warmup=False, device=dev, **kw)
+        # A few untimed ticks warm the allocator (eager PyTorch compiles
+        # nothing), then the counted and timed pass.
+        run_broadcast(cfg, 3, seed=0, warmup=False, device=dev, **kw)
         ring_exchange.launches = 0
         rep = run_broadcast(cfg, steps, seed=0, warmup=False, device=dev,
                             **kw)
@@ -869,7 +889,9 @@ def phase_membership(dev, card: str) -> dict:
 
     ring_exchange.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    summary = probe1k(seed=0, device=dev)
+    with kept_reports("run_membership") as (kept, _):
+        summary = probe1k(seed=0, device=dev)
+    reports["probe1k"] = (kept[-1], None)
     launches += ring_exchange.launches
     membership_line("probe1k", card, **summary, overflow=None,
                     forgotten=None, host_syncs_per_tick=0.0,
@@ -1556,26 +1578,54 @@ def _ring_kernels_profiled(run) -> int:
                and "ring" in e.key.lower())
 
 
-def phase_stream_sharded(dev, card: str) -> dict:
+@contextlib.contextmanager
+def kept_reports(*names):
+    """Keep the report, and the config, of every call a preset makes to the
+    ``sim.scenarios`` entry points ``names`` (``run_broadcast``, ...), in
+    call order: the presets return summaries, and the per-tick outputs are
+    compared without another run of the study.  Yields ``(reports,
+    configs)``."""
+    from consul_tpu_torch.sim import scenarios
+
+    reports, configs = [], []
+    real = {name: getattr(scenarios, name) for name in names}
+
+    def keeper(fn):
+        def run(cfg, *args, **kw):
+            reports.append(fn(cfg, *args, **kw))
+            configs.append(cfg)
+            return reports[-1]
+        return run
+
+    for name, fn in real.items():
+        setattr(scenarios, name, keeper(fn))
+    try:
+        yield reports, configs
+    finally:
+        for name, fn in real.items():
+            setattr(scenarios, name, fn)
+
+
+def phase_stream_sharded(dev, card: str) -> tuple:
     """stream100k over 8 logical shards at 100k and 1M (edges, both
     transports): equal to each other and to the unsharded edges run on
     every tick, outbox overflow 0, one ring launch a tick (counted, and
     seen by the profiler); event100k over 8 shards with both transports;
-    dev3; probe1k over 8 shards with the ring.  Returns each ring study's
-    kernel launches."""
+    dev3.  (probe1k over 8 shards runs in phase 12, with the trace.)
+    Returns each ring study's kernel launches, and the reports of the
+    preset runs (telemetry off) that phase 12 holds its telemetry runs
+    against."""
     import torch
 
     from consul_tpu_torch import mesh_for, run_streamcast
     from consul_tpu_torch.ops import ring_exchange
-    from consul_tpu_torch.sim import scenarios
     from consul_tpu_torch.sim.scenarios import (
         dev3,
         event100k,
-        probe1k,
         stream100k_config,
     )
 
-    launches = {}
+    launches, off = {}, {}
     for n, steps in ((STREAM_N, STREAM_STEPS), (N_1M, STREAM_1M_SHARD_STEPS)):
         cfg = stream100k_config(n, steps, devices=SHARDS)
         tag = f"stream_{n}_edges"
@@ -1599,6 +1649,8 @@ def phase_stream_sharded(dev, card: str) -> dict:
             runs[exchange] = _stream_outputs(rep)
             if exchange == "ring":
                 launches[n] = n_launch
+                if n == STREAM_N:   # stream100k(devices=8, exchange="ring")
+                    off["stream100k_d8_ring"] = rep
         check(_same_outputs(runs["ring"], runs["alltoall"]),
               f"{tag}: ring != alltoall")
         check(_same_outputs(runs["ring"], _stream_outputs(plain)),
@@ -1619,21 +1671,11 @@ def phase_stream_sharded(dev, card: str) -> dict:
     # preset's own call so that the transports are compared on every tick
     # without a third run of the study.
     curves = {}
-    preset_run = scenarios.run_broadcast
     for exchange in ("ring", "alltoall"):
-        reports = []
-
-        def kept(*args, **kw):
-            reports.append(preset_run(*args, **kw))
-            return reports[-1]
-
         ring_exchange.launches = 0
-        scenarios.run_broadcast = kept
-        try:
+        with kept_reports("run_broadcast") as (reports, _):
             summary = event100k(seed=0, devices=SHARDS, exchange=exchange,
                                 device=dev)
-        finally:
-            scenarios.run_broadcast = preset_run
         n_launch = ring_exchange.launches
         check(summary["shard_overflow"] == 0,
               f"event100k {exchange}: overflow {summary['shard_overflow']}")
@@ -1646,17 +1688,17 @@ def phase_stream_sharded(dev, card: str) -> dict:
         if exchange == "ring":
             launches["event100k"] = n_launch
         curves[exchange] = reports[-1].infected
+        off[f"event100k_d8_{exchange}"] = reports[-1]
     check(np.array_equal(curves["ring"], curves["alltoall"]),
           "event100k: ring != alltoall")
     check(int(curves["ring"][-1]) == STREAM_N, "event100k: not all reached")
 
-    small = dev3(seed=0, device=dev)
+    with kept_reports("run_broadcast") as (reports, _):
+        small = dev3(seed=0, device=dev)
+    off["dev3"] = reports[-1]
     check(small["infected_final"] == 3, "dev3: the event missed a node")
     log("dev3 " + json.dumps(small))
-    summary = probe1k(seed=0, devices=SHARDS, exchange="ring", device=dev)
-    check(summary["all_detected"], "probe1k over 8 shards: a crash missed")
-    log("probe1k_d8_ring " + json.dumps({**summary, "card": card}))
-    return launches
+    return launches, off
 
 
 def phase_stream_parity(dev) -> None:
@@ -2010,7 +2052,9 @@ def phase_sweep(dev, card: str) -> None:
     # seeds4k: the reference's acceptance sweep, and the launches a tick.
     t_part = time.perf_counter()
     uni = make_preset("seeds4k")
-    rep = run_sweep(uni, warmup=True, device=dev)
+    # A few untimed ticks at the same U warm the allocator; then timed.
+    run_sweep(dataclasses.replace(uni, steps=3), warmup=False, device=dev)
+    rep = run_sweep(uni, warmup=False, device=dev)
     first = rep.metrics["first_suspect_ms"]
     check(not np.isnan(first).any(),
           f"seeds4k: {int(np.isnan(first).sum())} universes never detected")
@@ -2379,8 +2423,10 @@ def phase_sweepshard(dev, card: str, plain_sparse, twin) -> tuple:
 
 def phase_sweepshard_small(dev) -> None:
     """The five composed families at a small shape, U = 2 x D = 2 with a
-    knob varying, on both transports: ring == alltoall, and the card ==
-    the CPU on every tick's outputs, the final state and the overflow."""
+    knob varying, on both transports, with the telemetry trace on: ring ==
+    alltoall, and the card == the CPU on every tick's outputs, the
+    ``[U, steps, M]`` trace (phase 12's composed sweep), the final state
+    and the overflow."""
     import torch
 
     from consul_tpu_torch import (
@@ -2421,7 +2467,7 @@ def phase_sweepshard_small(dev) -> None:
         for exchange in ("ring", "alltoall"):
             for where in (dev, torch.device("cpu")):
                 final, outs, ov = make_sweep(
-                    model, 2, False, mesh_for(2, where), exchange)(
+                    model, 2, True, mesh_for(2, where), exchange)(
                     stacked_init(uni, where), uni.keys(where),
                     uni.knob_arrays(where), cfg, uni.steps, uni.knobs,
                     track)
@@ -2436,10 +2482,344 @@ def phase_sweepshard_small(dev) -> None:
             check(not diff, f"sweepshard {model} {key}: state != CPU "
                   f"alltoall: {diff}")
         log(f"sweepshard {model}: U=2 x D=2, {knob} {values}, ring == "
-            f"alltoall and card == CPU on every tick's outputs, the final "
-            f"state and the overflow ({want[0][-1].tolist()}), "
+            f"alltoall and card == CPU on every tick's outputs and trace, "
+            f"the final state and the overflow ({want[0][-1].tolist()}), "
             f"{uni.steps} ticks at n={getattr(cfg, 'n', None) or cfg.base.n}")
     log(f"sweepshard small families in {time.perf_counter() - t_part:.1f} s")
+
+
+# Phase 12: the telemetry plane and the command line.
+PROBE1K_STEPS = 300           # probe1k's depth
+GEO100K_STEPS = 120           # geo100k's depth
+DEV3_STEPS = 10               # dev3's depth
+TELEMETRY_SWIM_STEPS = 60     # the headline study's first 60 ticks
+TELEMETRY_PARITY_STEPS = 12
+NOT_OUTPUTS = ("metrics_trace", "metric_names", "wall_s")
+
+
+def _report_diff(want, got, skip=()) -> str:
+    """The first field of two reports that differs (arrays by dtype and
+    value), the trace and the wall time aside; '' when none does."""
+    for name, w in vars(want).items():
+        if name in NOT_OUTPUTS or name in skip:
+            continue
+        g = getattr(got, name)
+        if isinstance(w, np.ndarray):
+            if not (isinstance(g, np.ndarray) and w.dtype == g.dtype
+                    and np.array_equal(w, g)):
+                return name
+        elif w != g:
+            return name
+    return ""
+
+
+def _column(rep, name: str) -> np.ndarray:
+    return rep.metrics_trace[:, rep.metric_names.index(name)]
+
+
+def _same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                 b.view(np.uint32))
+
+
+def _check_trace(tag: str, rep, entrypoint: str, ticks: int) -> None:
+    """The trace has the family's columns, one float32 row a tick, and
+    holds integer counts."""
+    from consul_tpu_torch.obs import metric_names
+
+    trace = rep.metrics_trace
+    check(rep.metric_names == metric_names(entrypoint)
+          and trace.dtype == np.float32
+          and trace.shape == (ticks, len(rep.metric_names)),
+          f"{tag}: trace {trace.dtype} {trace.shape}")
+    check(np.isfinite(trace).all() and np.array_equal(trace,
+                                                       np.round(trace)),
+          f"{tag}: the trace holds a value that is not a count")
+
+
+def _check_snapshot(tag: str, snap: dict, rep, entrypoint: str) -> None:
+    """The bridged /v1/agent/metrics snapshot restates the trace: a counter
+    per column with one sample a tick summing to the column, a gauge at
+    the final tick's level."""
+    from consul_tpu_torch.obs.spec import METRIC_SPECS
+
+    counters = {c["Name"]: c for c in snap["Counters"]}
+    gauges = {g["Name"]: g["Value"] for g in snap["Gauges"]}
+    for spec in METRIC_SPECS[entrypoint]:
+        col = _column(rep, spec.name).astype(float)
+        if spec.kind == "gauge":
+            check(gauges.get(spec.name) == col[-1],
+                  f"{tag}: gauge {spec.name} != the trace's last level")
+        else:
+            c = counters.get(spec.name, {})
+            check(c.get("Count") == len(col)
+                  and c.get("Sum") == round(float(col.sum()), 6),
+                  f"{tag}: counter {spec.name} != the trace's column")
+
+
+def _count_syncs(fn):
+    """(host synchronisations ``fn()`` made, its result): every call that
+    waits for the device warns under ``torch.cuda.set_sync_debug_mode``."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in seen), out
+
+
+def phase_telemetry(dev, card: str, off: dict) -> dict:
+    """The presets at their published sizes through ``run_scenario(...,
+    telemetry=True)``: event100k and probe1k over 8 logical shards with
+    each transport, stream100k over 8 shards with the ring, geo100k and
+    dev3.  Every output equals the same preset's run with telemetry off
+    (phase 9's runs and phase 6's unsharded probe1k, ``off``, and here
+    geo100k's), the ring trace equals
+    the alltoall trace, the ring kernel launches once a tick (counted, and
+    seen by the profiler), the bridged snapshot restates the trace, and
+    the columns that restate an output equal it.  Then the 1M SWIM
+    headline (60 ticks) with telemetry on and off (outputs equal, no more
+    host syncs), the seven families card == CPU at a small size, and the
+    command line (``sim event100k --devices 8 --exchange ring --metrics``)
+    in a process of its own.  Returns each ring study's launches."""
+    import torch
+
+    from consul_tpu_torch import (
+        BroadcastConfig,
+        GeoConfig,
+        LifeguardConfig,
+        MembershipConfig,
+        SparseMembershipConfig,
+        StreamcastConfig,
+        SwimConfig,
+        mesh_for,
+        run_broadcast,
+        run_geo,
+        run_lifeguard,
+        run_membership,
+        run_membership_sparse,
+        run_streamcast,
+        run_swim,
+    )
+    from consul_tpu_torch.models import swim_init
+    from consul_tpu_torch.obs import metric_names
+    from consul_tpu_torch.ops import PRNGKey, host_cond, ring_exchange
+    from consul_tpu_torch.protocol import LAN
+    from consul_tpu_torch.sim.engine import swim_scan
+    from consul_tpu_torch.sim.scenarios import event100k_config, run_scenario
+
+    t_phase = time.perf_counter()
+    presets = (
+        # (tag, preset, arguments, the run_* it calls, family, ticks,
+        #  ring launches: event100k runs twice, warm-up and timed)
+        ("event100k_d8_ring", "event100k",
+         dict(devices=SHARDS, exchange="ring"), "run_broadcast", "broadcast",
+         EVENT_STEPS, 2 * EVENT_STEPS),
+        ("event100k_d8_alltoall", "event100k",
+         dict(devices=SHARDS, exchange="alltoall"), "run_broadcast",
+         "broadcast", EVENT_STEPS, 0),
+        ("probe1k_d8_ring", "probe1k", dict(devices=SHARDS, exchange="ring"),
+         "run_membership", "membership", PROBE1K_STEPS, PROBE1K_STEPS),
+        ("probe1k_d8_alltoall", "probe1k",
+         dict(devices=SHARDS, exchange="alltoall"), "run_membership",
+         "membership", PROBE1K_STEPS, 0),
+        ("stream100k_d8_ring", "stream100k",
+         dict(devices=SHARDS, exchange="ring"), "run_streamcast",
+         "streamcast", STREAM_STEPS, STREAM_STEPS),
+        ("geo100k", "geo100k", {}, "run_geo", "geo", GEO100K_STEPS, 0),
+        ("dev3", "dev3", {}, "run_broadcast", "broadcast", DEV3_STEPS, 0),
+    )
+    on, summaries, cfgs, launches, syncs = {}, {}, {}, {}, {}
+    for tag, name, kw, runner, entry, ticks, want in presets:
+        t0 = time.perf_counter()
+        ring_exchange.launches = 0
+        before = host_cond.syncs
+        with kept_reports(runner) as (reports, configs):
+            summary = run_scenario(name, seed=0, telemetry=True, device=dev,
+                                   **kw)
+        n_launch = ring_exchange.launches
+        syncs[tag] = host_cond.syncs - before
+        rep = on[tag] = reports[-1]
+        summaries[tag], cfgs[tag] = summary, configs[-1]
+        check(n_launch == want,
+              f"telemetry {tag}: ring kernel launched {n_launch} times")
+        _check_trace(tag, rep, entry, ticks)
+        _check_snapshot(tag, summary["metrics"], rep, entry)
+        launches[tag] = n_launch
+        log(f"telemetry {tag}: {ticks} ticks, ring launches {n_launch}, "
+            f"{time.perf_counter() - t0:.1f} s; " + json.dumps(
+                {k: v for k, v in summary.items() if k != "metrics"}))
+
+    # geo100k has no earlier run: its telemetry-off twin runs here, on the
+    # preset's own config (its Vivaldi latencies derived once).
+    before = host_cond.syncs
+    off = dict(off, geo100k=run_geo(cfgs["geo100k"], GEO100K_STEPS, seed=0,
+                                    warmup=False, device=dev))
+    check(host_cond.syncs - before == syncs["geo100k"],
+          f"geo100k: {syncs['geo100k']} host syncs with telemetry, "
+          f"{host_cond.syncs - before} without")
+    for tag, rep in on.items():
+        if tag.startswith("probe1k"):
+            # probe1k's run without the trace is phase 6's unsharded one:
+            # the dense twin equals it where no outbox overflows.
+            check(rep.overflow == 0 and summaries[tag]["all_detected"],
+                  f"telemetry {tag}: overflow {rep.overflow}, or a crash "
+                  "went undetected")
+            diff = _report_diff(off["probe1k"], rep, skip=("overflow",))
+        else:
+            diff = _report_diff(off[tag.replace("alltoall", "ring")], rep)
+        check(not diff, f"telemetry {tag}: {diff} != the run without it")
+    for name in ("event100k", "probe1k"):
+        check(_same_bits(on[f"{name}_d8_ring"].metrics_trace,
+                         on[f"{name}_d8_alltoall"].metrics_trace),
+              f"telemetry {name}: ring trace != alltoall trace")
+    seen = _ring_kernels_profiled(lambda: run_broadcast(
+        event100k_config(SHARDS), 5, seed=0, warmup=False,
+        mesh=mesh_for(SHARDS), exchange="ring", telemetry=True, device=dev))
+    check(seen == 5, f"profiler saw {seen} ring kernels in 5 telemetry ticks")
+
+    # The columns that restate an output equal it.
+    for tag in ("event100k_d8_ring", "event100k_d8_alltoall", "dev3"):
+        rep = on[tag]
+        check(np.array_equal(_column(rep, "consul.broadcast.infected"),
+                             rep.infected.astype(np.float32)),
+              f"{tag}: consul.broadcast.infected != infected")
+    rep = on["geo100k"]
+    for name in ("offered", "admitted", "queued", "overflow"):
+        per_link = getattr(rep, name).sum(axis=1, dtype=np.int64)
+        check(np.array_equal(_column(rep, f"consul.geo.wan.{name}"),
+                             per_link.astype(np.float32)),
+              f"geo100k: consul.geo.wan.{name} != the per-link sums")
+    for tag in ("probe1k_d8_ring", "probe1k_d8_alltoall"):
+        rep = on[tag]
+        for name, field in (("suspect_cells", rep.suspect_cells),
+                            ("known", rep.known_members)):
+            check(np.array_equal(_column(rep, f"consul.membership.{name}"),
+                                 field.astype(np.float32)),
+                  f"{tag}: consul.membership.{name} != its output")
+    rep = on["stream100k_d8_ring"]
+    for name, field in (("offered", rep.offered),
+                        ("delivered", rep.delivered),
+                        ("window_overflow", rep.window_overflow),
+                        ("coalesced", rep.coalesced)):
+        total = np.cumsum(_column(rep, f"consul.streamcast.{name}"),
+                          dtype=np.float64)
+        check(np.array_equal(total, field.astype(np.float64)),
+              f"stream100k: consul.streamcast.{name} deltas != {name}")
+    log("telemetry presets: every output == telemetry off, ring trace == "
+        "alltoall trace, one ring launch a tick (profiled), the snapshot "
+        "and the restating columns equal the outputs; host syncs "
+        + json.dumps(syncs))
+
+    # The 1M SWIM headline, with the trace and without.
+    cfg = swim_headline_cfg("aggregate")
+    runs = {}
+    for telemetry in (False, True):
+        state = swim_init(cfg, device=dev)
+        key = PRNGKey(0, device=dev)
+        t0 = time.perf_counter()
+        n_sync, (final, outs) = _count_syncs(lambda: swim_scan(
+            state, key, cfg, TELEMETRY_SWIM_STEPS, telemetry))
+        wall = time.perf_counter() - t0
+        runs[telemetry] = (to_cpu(final), [o.cpu().numpy() for o in outs],
+                           n_sync, wall)
+    (f_off, o_off, s_off, w_off), (f_on, o_on, s_on, w_on) = (
+        runs[False], runs[True])
+    check(all(_same_outputs((a,), (b,)) for a, b in zip(o_off, o_on[:2])),
+          "swim_aggregate_1m: outputs with telemetry != without")
+    diff = state_diff(f_off, f_on)
+    check(not diff, f"swim_aggregate_1m: final {diff} with telemetry")
+    check(s_on == s_off, f"swim_aggregate_1m: {s_on} host syncs with "
+          f"telemetry, {s_off} without")
+    trace = o_on[2]
+    names = list(metric_names("swim"))
+    for i, name in enumerate(("consul.swim.suspecting",
+                              "consul.swim.dead_known")):
+        check(np.array_equal(trace[:, names.index(name)],
+                             o_on[i].astype(np.float32)),
+              f"swim_aggregate_1m: {name} != its output")
+    log("telemetry swim_aggregate_1m " + json.dumps({
+        "ticks": TELEMETRY_SWIM_STEPS, "host_syncs_off": s_off,
+        "host_syncs_on": s_on, "wall_s_off": w_off, "wall_s_on": w_on,
+        "suspecting_final": int(o_on[0][-1]),
+        "card": card}))
+
+    # The seven families on the card against the CPU.
+    churn = MembershipConfig(n=SMALL_N, loss=0.2, profile=LAN,
+                             fail_at=((5, 3), (100, 5), (2000, 8)),
+                             leave_at=((77, 10),))
+    families = {
+        "swim": (run_swim, SwimConfig(n=SMALL_N, subject=9, loss=0.1), {}),
+        "lifeguard": (run_lifeguard, LifeguardConfig(
+            n=SMALL_N, subject=9, fail_at_tick=10, loss=0.1, ack_late=0.25),
+            {}),
+        "broadcast": (run_broadcast,
+                      BroadcastConfig(n=SMALL_N, fanout=3, loss=0.05), {}),
+        "membership": (run_membership, MembershipConfig(
+            n=512, loss=0.2, profile=LAN, fail_at=((5, 3), (17, 8)),
+            leave_at=((30, 12),)), {"track": (5,)}),
+        "sparse": (run_membership_sparse,
+                   SparseMembershipConfig(churn, k_slots=16),
+                   {"track": (5,)}),
+        "streamcast": (run_streamcast, StreamcastConfig(
+            n=SMALL_N, events=40, chunks=4, window=8, fanout=4,
+            chunk_budget=2, rate=0.3, loss=0.05, delivery="edges",
+            policy="pipeline"), {}),
+        "geo": (run_geo, GeoConfig(n=SMALL_N, segments=8,
+                                   bridges_per_segment=3, events=8), {}),
+    }
+    for family, (run, fcfg, kw) in families.items():
+        reps = {}
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            out = run(fcfg, TELEMETRY_PARITY_STEPS, seed=3, warmup=False,
+                      telemetry=True, device=where, **kw)
+            reps[side] = out[0] if isinstance(out, tuple) else out
+        check(_same_bits(reps["cpu"].metrics_trace,
+                         reps["card"].metrics_trace),
+              f"telemetry {family}: card trace != CPU trace")
+        diff = _report_diff(reps["cpu"], reps["card"], skip=("device",))
+        check(not diff, f"telemetry {family}: card {diff} != CPU")
+    log(f"telemetry: the seven families card == CPU, trace and outputs, "
+        f"{TELEMETRY_PARITY_STEPS} ticks at n={SMALL_N} (dense 512)")
+
+    # The command line in a process of its own.
+    t0 = time.perf_counter()
+    argv = [sys.executable, "-m", "consul_tpu_torch.cli", "sim", "event100k",
+            "--devices", str(SHARDS), "--exchange", "ring", "--metrics"]
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"cli sim: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout)
+    want = json.loads(json.dumps(summaries["event100k_d8_ring"],
+                                 default=str))
+    for d in (got, want):
+        d.pop("sim_rounds_per_sec")
+        d["metrics"].pop("Timestamp")
+    check(got == want, "cli sim event100k --metrics != run_scenario's")
+    log(f"cli: {' '.join(argv[1:])} printed run_scenario's JSON in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"telemetry phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def probe1k_ring_shape(dev) -> tuple:
+    """(path, [D, D, C, budget]) of probe1k's ring path over 8 shards."""
+    from consul_tpu_torch import MembershipConfig
+    from consul_tpu_torch.parallel import mesh_for, sharded_membership_plan
+    from consul_tpu_torch.protocol import LAN
+
+    cfg = MembershipConfig(n=1000, loss=0.0, profile=LAN, fanout=3)
+    budget = sharded_membership_plan(cfg, mesh_for(SHARDS), dev).budget
+    return ("sharded_membership_scan(exchange='ring'), probe1k, telemetry",
+            (SHARDS, SHARDS, 4, budget))
 
 
 def main() -> int:
@@ -2478,7 +2858,7 @@ def main() -> int:
         " s")
     t9 = time.perf_counter()
     stream_paths = phase_ring_paths(dev, stream_ring_shapes())
-    stream_launches = phase_stream_sharded(dev, card)
+    stream_launches, preset_off = phase_stream_sharded(dev, card)
     phase_stream_presets(dev, card)
     phase_stream_parity(dev)
     log(f"streamcast phase passed in {time.perf_counter() - t9:.1f} s")
@@ -2489,6 +2869,9 @@ def main() -> int:
         sparse_twin)
     phase_sweepshard_small(dev)
     log(f"sweep x shard phase passed in {time.perf_counter() - t11:.1f} s")
+    preset_off["probe1k"] = membership_reports["probe1k"][0]
+    telemetry_launches = phase_telemetry(dev, card, preset_off)
+    (probe1k_row,) = phase_ring_paths(dev, [probe1k_ring_shape(dev)])
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     # Every ring path with the launches of the study that drives it; the
@@ -2502,7 +2885,17 @@ def main() -> int:
             stream_launches["event100k"])):
         row["launches"] = n_launch
     composed_row["launches"] = composed_launches
-    paths = paths + stream_paths + [composed_row]
+    # Phase 12's ring studies, with the telemetry runs' launches (the
+    # event100k and stream100k shapes are timed in phase 9).
+    telemetry_rows = []
+    for row, tag in ((stream_paths[2], "event100k_d8_ring"),
+                     (stream_paths[0], "stream100k_d8_ring"),
+                     (probe1k_row, "probe1k_d8_ring")):
+        row = dict(row, launches=telemetry_launches[tag])
+        if "telemetry" not in row["path"]:
+            row["path"] += ", telemetry"
+        telemetry_rows.append(row)
+    paths = paths + stream_paths + [composed_row] + telemetry_rows
     head = max(paths, key=lambda row: np.prod(row["shape"]))
     kernel = {
         "name": "ring_exchange", "route": "cuda",

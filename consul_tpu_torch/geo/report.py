@@ -1,6 +1,6 @@
 """Host-side reduction of a geo study: per-segment convergence times
 and per-link WAN transfer accounting (the port's copy of
-``consul_tpu/geo/report.py``, without the telemetry fields).
+``consul_tpu/geo/report.py``).
 
 Times follow sim/metrics.py conventions: tick t's counters describe the
 state AFTER tick t, so an event first visible at index t happened at
@@ -42,6 +42,10 @@ class GeoReport:
     # exchanged every WAN message a single shard would have.
     shard_overflow: Optional[int] = None
     device: str = ""          # what the run ran on
+    # telemetry=True studies only (consul_tpu_torch/obs): the [steps, M]
+    # Consul-named metrics trace and its column names.
+    metric_names: tuple = ()
+    metrics_trace: Optional[np.ndarray] = None
 
     @property
     def seg_size(self) -> int:

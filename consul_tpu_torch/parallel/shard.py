@@ -23,6 +23,10 @@ Exactness ladder: D == 1 equals the unsharded scan; overflow == 0 means
 the sharded run delivered every message a single shard would have.  The
 reference's per-shard ``psum``s are sums over the shard axis.
 
+With ``telemetry=True`` every twin also returns the ``[steps, M]`` metrics
+trace last (``obs/spec.py``): per-node counts per logical shard, summed
+over the shard axis, so it equals the unsharded trace at any D.
+
 Every twin also runs a sweep's U universes at once (the sweep x shard
 composition): a key batch ``[U, 2]`` over a stacked ``[U, ...]`` state
 gives planes ``[U, D, blk, ...]``, outboxes ``[U, D, D, budget]`` with the
@@ -88,6 +92,7 @@ from consul_tpu_torch.ops import (
     sample_peers_owned,
     split,
 )
+from consul_tpu_torch.obs.spec import open_trace, with_trace
 from consul_tpu_torch.ops.knobs import keep_prob
 from consul_tpu_torch.ops.sortmerge import _segmented_sum
 from consul_tpu_torch.parallel.mesh import Mesh, block_size
@@ -219,15 +224,17 @@ def _sum_shards(x: torch.Tensor) -> torch.Tensor:
 
 def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
                            cfg: BroadcastConfig, steps: int, mesh: Mesh,
-                           exchange: str = "alltoall"):
+                           exchange: str = "alltoall",
+                           telemetry: bool = False):
     """Sharded twin of ``sim.engine.broadcast_scan``.
 
     ``state`` holds global ``[n]`` planes (as the reference's sharded
     arrays do); inside, every plane is ``[D, blk]``.  Returns
     ``(final_state, (infected[steps], overflow))`` with ``overflow`` the
     total outbox budget misses (0 at D == 1 by construction) and the
-    final planes global ``[n]`` again.  A key batch ``[U, 2]`` over a
-    stacked ``[U, ...]`` state runs U universes (``overflow`` ``[U]``)."""
+    final planes global ``[n]`` again, and the trace last with
+    ``telemetry``.  A key batch ``[U, 2]`` over a stacked ``[U, ...]``
+    state runs U universes (``overflow`` ``[U]``)."""
     _check_backend(exchange)
     n, fanout = cfg.n, cfg.fanout
     d_shards = mesh.n_shards
@@ -248,6 +255,8 @@ def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
     st = state
     ov = torch.zeros(batch, dtype=torch.int32, device=dev)
     infected = _per_tick(batch, steps, device=dev)
+    trace = open_trace("broadcast", key, steps, telemetry,
+                       mesh.n_shards)
     for t in range(steps):
         k_sel, k_loss = split(fold_in(key, t)).unbind(-2)
         senders = st.knows & (st.tx_left > 0)
@@ -283,11 +292,14 @@ def sharded_broadcast_scan(state: BroadcastState, key: torch.Tensor,
                 k_loss, rows_g, lam
             ).view(st.knows.shape)
 
+        prev = st if trace is not None else None
         st = spend_budget(st, new_knows, senders, cfg)
         infected[..., t] = torch.sum(
             torch.sum(new_knows.view(*batch, d_shards, blk), dim=-1,
                       dtype=torch.int32), dim=-1, dtype=torch.int32)
-    return st, (infected, ov)
+        if trace is not None:
+            trace.record(t, prev, st, infected[..., t], cfg)
+    return st, with_trace((infected, ov), trace)
 
 
 def _rows(x: torch.Tensor, n_shards: int, nb: int = 0) -> torch.Tensor:
@@ -499,26 +511,33 @@ def sharded_membership_round(state: MembershipState, key_rng: torch.Tensor,
 
 def sharded_membership_scan(state, key: torch.Tensor, cfg, steps: int,
                             mesh: Mesh, track: tuple = (),
-                            exchange: str = "alltoall"):
+                            exchange: str = "alltoall",
+                            telemetry: bool = False):
     """Sharded twin of ``sim.engine.membership_scan`` (cfg: a
     MembershipConfig): shard ``me`` owns observer rows ``[me*blk,
     (me+1)*blk)`` of every [n, n] plane; each tick is
     :func:`sharded_membership_round`.  Returns ``(final_state,
     (suspecting, dead_known, suspect_cells, known_members, overflow))``
-    with ``overflow`` the total misses (per universe for a key batch)."""
+    with ``overflow`` the total misses (per universe for a key batch), and
+    the trace last with ``telemetry``."""
     batch = tuple(key.shape[:-1])
     _check_mesh_state(state.key, mesh, cfg.n, len(batch))
     dev = state.key.device
     plan = sharded_membership_plan(cfg, mesh, dev, tuple(track), exchange)
     outs = track_outputs(steps, len(track), torch.int32, dev, batch)
     ov = torch.zeros(batch, dtype=torch.int32, device=dev)
+    trace = open_trace("membership", key, steps, telemetry,
+                       mesh.n_shards)
     for t in range(steps):
+        prev = state if trace is not None else None
         state, (*counts, ov_t) = sharded_membership_round(
             state, fold_in(key, t), cfg, plan)
         for o, v in zip(outs, counts):
             o.select(len(batch), t).copy_(v)
+        if trace is not None:
+            trace.record(t, prev, state, counts, cfg)
         ov = ov + ov_t
-    return state, (*outs, ov)
+    return state, with_trace((*outs, ov), trace)
 
 
 def _owned_legs(src_g, recv_ids, sel, plan: ShardPlan):
@@ -635,13 +654,15 @@ def sharded_sparse_membership_round(state: SparseMembershipState,
 def sharded_sparse_membership_scan(state, key: torch.Tensor, cfg,
                                    steps: int, mesh: Mesh,
                                    track: tuple = (),
-                                   exchange: str = "alltoall"):
+                                   exchange: str = "alltoall",
+                                   telemetry: bool = False):
     """Sharded twin of ``sim.engine.sparse_membership_scan`` (cfg: a
     SparseMembershipConfig with K < n): shard ``me`` owns observer rows
     ``[me*blk, (me+1)*blk)`` of the [n, K] slot planes; each tick is
     :func:`sharded_sparse_membership_round`.  Returns ``(final_state,
     (suspecting, dead_known, suspect_cells, known_members))`` like the
-    unsharded scan; ``state.overflow`` also counts the outbox misses.  A
+    unsharded scan (the trace last with ``telemetry``);
+    ``state.overflow`` also counts the outbox misses.  A
     key batch ``[U, 2]`` over a stacked state runs U universes, their D
     per-shard merges one ``merge_into_rows`` call of U*D segments."""
     batch = tuple(key.shape[:-1])
@@ -649,16 +670,21 @@ def sharded_sparse_membership_scan(state, key: torch.Tensor, cfg,
     dev = state.key.device
     plan = sharded_sparse_plan(cfg, mesh, dev, tuple(track), exchange)
     outs = track_outputs(steps, len(track), torch.float32, dev, batch)
+    trace = open_trace("sparse", key, steps, telemetry,
+                       mesh.n_shards)
     for t in range(steps):
+        prev = state if trace is not None else None
         state, counts = sharded_sparse_membership_round(
             state, fold_in(key, t), cfg, plan)
         for o, v in zip(outs, counts):
             o.select(len(batch), t).copy_(v)
-    return state, outs
+        if trace is not None:
+            trace.record(t, prev, state, counts, cfg)
+    return state, with_trace(outs, trace)
 
 
 def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
-                     exchange: str = "alltoall"):
+                     exchange: str = "alltoall", telemetry: bool = False):
     """Sharded twin of ``sim.engine.geo_scan`` (cfg: a GeoConfig).
 
     Segments lie contiguously over the shards (``segments % D == 0``, each
@@ -672,7 +698,8 @@ def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
     per-destination outbox with the two columns ``(recv, ev)``
     (``exchange`` = ``"alltoall"`` | ``"ring"``).  D == 1 equals the
     unsharded scan.  Returns ``(final_state, (*outs, outbox_overflow))``
-    with ``outbox_overflow`` the running count of budget misses per tick.
+    with ``outbox_overflow`` the running count of budget misses per tick
+    (and the trace last with ``telemetry``).
     A key batch ``[U, 2]`` over a stacked state runs U universes; the
     Knuth Poisson loop of the link plane still reads its predicate on the
     host for all U universes at once."""
@@ -721,6 +748,8 @@ def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
         _per_tick(batch, steps, device=dev),
     )
     ob_ov = torch.zeros(batch, dtype=torch.int32, device=dev)
+    trace = open_trace("geo", key, steps, telemetry,
+                       mesh.n_shards)
     st = state
     for t in range(steps):
         k_lan, k_gossip, k_tgt, k_loss = split(fold_in(key, t), 4).unbind(-2)
@@ -753,21 +782,25 @@ def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
 
         new_knows, tx_lan = merge(knows, tx_lan_l, senders,
                                   got_lan | got_wan, cfg)
-        for o, v in zip(outs, (per_segment_done(new_knows, cfg, nb),
-                               step.offered, step.admitted, step.queued,
-                               step.overflow, step.wasted, ob_ov)):
+        out = (per_segment_done(new_knows, cfg, nb), step.offered,
+               step.admitted, step.queued, step.overflow, step.wasted)
+        for o, v in zip(outs, (*out, ob_ov)):
             o.select(nb, t).copy_(v)
+        prev = st if trace is not None else None
         st = GeoState(
             knows=new_knows.view(*batch, n, E),
             tx_lan=tx_lan.view(*batch, n, E),
             ring=step.ring, queue=step.queue, known_hist=step.known_hist,
             ewma=step.ewma, wasted=step.wasted, tick=st.tick + 1,
         )
-    return st, outs
+        if trace is not None:
+            trace.record(t, prev, st, out, cfg)
+    return st, with_trace(outs, trace)
 
 
 def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
-                            mesh: Mesh, exchange: str = "alltoall"):
+                            mesh: Mesh, exchange: str = "alltoall",
+                            telemetry: bool = False):
     """Sharded twin of ``sim.engine.streamcast_scan`` (cfg: a
     StreamcastConfig).
 
@@ -783,7 +816,8 @@ def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
     path shares only each shard's ``[W, E]`` sender counts, whose sums are
     exact in any order.  Returns ``(final_state, (*outs, overflow))``
     with the unsharded scan's outputs and the running outbox overflow
-    a tick; D == 1 equals the unsharded scan.  A key batch ``[U, 2]`` over
+    a tick (and the trace last with ``telemetry``); D == 1 equals the
+    unsharded scan.  A key batch ``[U, 2]`` over
     a stacked state runs U universes (the planes ``[U, D, blk, ...]``)."""
     from consul_tpu_torch.sim.engine import streamcast_outputs
     from consul_tpu_torch.streamcast.model import (
@@ -824,6 +858,8 @@ def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
     outs = (*streamcast_outputs(cfg, steps, dev, batch),
             _per_tick(batch, steps, device=dev))
     ob_ov = torch.zeros(batch, dtype=torch.int32, device=dev)
+    trace = open_trace("streamcast", key, steps, telemetry,
+                       mesh.n_shards)
     st = state._replace(
         chunks=state.chunks.view(*batch, d_shards, blk, w_slots, e_chunks),
         tx_left=state.tx_left.view(*batch, d_shards, blk, w_slots),
@@ -859,13 +895,16 @@ def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
                                  shard_sum, nb)
             new_chunks = adm.chunks | aggregate_arrivals_chunks(
                 cfg, k_loss, rows_g, lam)
+        prev = st if trace is not None else None
         st, out = finish_stage(st, cfg, adm, new_chunks, serviced, cursor,
                                shard_sum)
         for o, v in zip(outs, (*out, ob_ov)):
             o.select(nb, t).copy_(v)
+        if trace is not None:
+            trace.record(t, prev, st, out, cfg)
     final = st._replace(
         chunks=st.chunks.reshape(*batch, n, w_slots, e_chunks),
         tx_left=st.tx_left.reshape(*batch, n, w_slots),
         cursor=st.cursor.reshape(*batch, n, w_slots),
     )
-    return StreamcastState(*final), outs
+    return StreamcastState(*final), with_trace(outs, trace)

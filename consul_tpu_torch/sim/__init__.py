@@ -1,6 +1,6 @@
 """Study engine (plain runs, universe sweeps and their composition with
 the sharded twins), fault schedules, offered-load generators and
-reports."""
+reports, and the scenario presets (``run_scenario``)."""
 
 from consul_tpu_torch.sim.engine import (
     broadcast_scan,
@@ -38,6 +38,17 @@ from consul_tpu_torch.sim.metrics import (
     time_to_fraction,
 )
 
+
+def __getattr__(name: str):
+    # PEP 562: the presets import the models, which import this package
+    # through ``sim.faults``, so they load on first touch.
+    if name in ("SCENARIOS", "run_scenario"):
+        from consul_tpu_torch.sim import scenarios
+
+        return getattr(scenarios, name)
+    raise AttributeError(name)
+
+
 __all__ = [
     "BandwidthSchedule",
     "BroadcastReport",
@@ -49,6 +60,7 @@ __all__ = [
     "MembershipReport",
     "MultiDCReport",
     "Partition",
+    "SCENARIOS",
     "SwimReport",
     "broadcast_scan",
     "geo_scan",
@@ -61,6 +73,7 @@ __all__ = [
     "run_membership",
     "run_membership_sparse",
     "run_multidc",
+    "run_scenario",
     "run_streamcast",
     "run_sweep",
     "run_swim",

@@ -27,7 +27,12 @@ logical shards with the ring transport (60 ticks); then bench.py's 1M
 sustained-load curve (paced, W=7, budget 4, 99%) for the uniform and the
 pipeline policy, as one plain run at rate 0.3 and as the U = 4 sweep over
 its four rates (30 ticks each), so that a batched tick's device time and
-launches stand beside one plain tick's.
+launches stand beside one plain tick's.  Four studies run a second time
+with the in-scan telemetry on (``telemetry=True``, ``consul_tpu_torch/obs``),
+each right after its run without it: the SWIM headline, the 1M sparse
+cold study, the 1M uniform stream and the 1M adaptive geo arm
+(``<study>_telemetry``), so that the trace's extra launches and device
+time a tick stand beside the study's own.
 
 Each study runs once to warm up, once timed over all its ticks without
 the profiler (rounds/s), and over a shorter window twice: once timed
@@ -341,9 +346,26 @@ def main() -> int:
             (f"curve_1m_{p}_sweep_u4", swept(uni), CURVE_STEPS,
              MEMBERSHIP_WINDOW),
         )
+    # The same four studies with the telemetry trace on, each run right
+    # after its plain twin.
+    with_trace = {
+        "swim_aggregate_1m": study(run_swim, swim["aggregate"],
+                                   telemetry=True),
+        "membership_sparse_1m_cold": study(
+            run_membership_sparse, sparse[N_NODES], track=(42,),
+            telemetry=True),
+        "stream_1m_aggregate_uniform": study(run_streamcast,
+                                             stream["uniform"],
+                                             telemetry=True),
+        "geo_1m_adaptive": study(run_geo, geo, telemetry=True),
+    }
     for label, run, ticks, window in studies:
         print(json.dumps(profile_study(run, label, ticks, window)),
               flush=True)
+        if label in with_trace:
+            print(json.dumps(profile_study(with_trace[label],
+                                           f"{label}_telemetry", ticks,
+                                           window)), flush=True)
     return 0
 
 

@@ -52,6 +52,7 @@ from consul_tpu_torch.models.swim import (
     swim_init,
     swim_round,
 )
+from consul_tpu_torch.obs.spec import metric_names, open_trace, with_trace
 from consul_tpu_torch.ops import PRNGKey, fold_in
 from consul_tpu_torch.parallel.shard import (
     sharded_broadcast_scan,
@@ -82,15 +83,24 @@ def _count_nodes(x: torch.Tensor) -> torch.Tensor:
 
 
 def broadcast_scan(state, key: torch.Tensor, cfg: BroadcastConfig,
-                   steps: int):
+                   steps: int, telemetry: bool = False):
     """Run ``steps`` gossip ticks; returns (final_state, infected[steps]).
     A key batch ``[U, 2]`` over a stacked ``[U, ...]`` state runs U
-    universes in each tick (the sweep plane); outputs gain a leading U."""
+    universes in each tick (the sweep plane); outputs gain a leading U.
+
+    ``telemetry`` appends one output, the ``[steps, M]`` float32 trace of
+    the Consul-named metrics (``obs/spec.py``): (final, (infected,
+    trace)).  Every other output is the same with it on; off, no emitter
+    runs.  The same seam is on every scan below."""
     infected = _per_tick(key, steps)
+    trace = open_trace("broadcast", key, steps, telemetry)
     for t in range(steps):
+        prev = state if trace is not None else None
         state = broadcast_round(state, fold_in(key, t), cfg)
         infected[..., t] = _count_nodes(state.knows)
-    return state, infected
+        if trace is not None:
+            trace.record(t, prev, state, infected[..., t], cfg)
+    return state, (infected if trace is None else (infected, trace.buf))
 
 
 def multidc_scan(state, key: torch.Tensor, cfg: MultiDCConfig, steps: int):
@@ -108,11 +118,13 @@ def multidc_scan(state, key: torch.Tensor, cfg: MultiDCConfig, steps: int):
     return state, (total, per_seg)
 
 
-def geo_scan(state, key: torch.Tensor, cfg, steps: int):
+def geo_scan(state, key: torch.Tensor, cfg, steps: int,
+             telemetry: bool = False):
     """Run ``steps`` LAN ticks of the geo/WAN plane (``geo.model.geo_round``);
     returns ``(final_state, outs)`` with ``outs`` the per-tick
-    ``(per_segment, offered, admitted, queued, overflow, wasted)``.
-    Batches over a key batch as :func:`broadcast_scan` does."""
+    ``(per_segment, offered, admitted, queued, overflow, wasted)`` (and
+    the trace with ``telemetry``).  Batches over a key batch as
+    :func:`broadcast_scan` does."""
     # Imported at call time: geo.model depends on sim.faults, whose
     # package imports this module.
     from consul_tpu_torch.geo.model import geo_constants, geo_round
@@ -123,11 +135,15 @@ def geo_scan(state, key: torch.Tensor, cfg, steps: int):
             *(_per_tick(key, steps, S2) for _ in range(4)),
             _per_tick(key, steps))
     nb = key.dim() - 1
+    trace = open_trace("geo", key, steps, telemetry)
     for t in range(steps):
+        prev = state if trace is not None else None
         state, out = geo_round(state, fold_in(key, t), cfg, consts)
         for o, v in zip(outs, out):
             o.select(nb, t).copy_(v)
-    return state, outs
+        if trace is not None:
+            trace.record(t, prev, state, out, cfg)
+    return state, with_trace(outs, trace)
 
 
 def streamcast_outputs(cfg, steps: int, device, batch: tuple = ()) -> tuple:
@@ -142,10 +158,12 @@ def streamcast_outputs(cfg, steps: int, device, batch: tuple = ()) -> tuple:
     )
 
 
-def streamcast_scan(state, key: torch.Tensor, cfg, steps: int):
+def streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
+                    telemetry: bool = False):
     """Run ``steps`` ticks of the pipelined event stream; returns
     ``(final_state, outs)`` with ``outs`` the per-tick window snapshots
-    and counters (:func:`streamcast_outputs`).  The arrival schedule comes
+    and counters (:func:`streamcast_outputs`; the trace last with
+    ``telemetry``).  The arrival schedule comes
     from ``fold_in(key, _SCHED_SALT)``, round ``t`` from
     ``fold_in(key, t)``.  Batches over a key batch as
     :func:`broadcast_scan` does."""
@@ -160,34 +178,46 @@ def streamcast_scan(state, key: torch.Tensor, cfg, steps: int):
     sched = arrival_arrays(cfg, fold_in(key, _SCHED_SALT))
     batch = tuple(key.shape[:-1])
     outs = streamcast_outputs(cfg, steps, key.device, batch)
+    trace = open_trace("streamcast", key, steps, telemetry)
     for t in range(steps):
+        prev = state if trace is not None else None
         state, out = streamcast_round(state, fold_in(key, t), cfg, sched)
         for o, v in zip(outs, out):
             o.select(len(batch), t).copy_(v)
-    return state, outs
+        if trace is not None:
+            trace.record(t, prev, state, out, cfg)
+    return state, with_trace(outs, trace)
 
 
 def _count(view: torch.Tensor, value: int) -> torch.Tensor:
     return _count_nodes(view == value)
 
 
-def swim_scan(state, key: torch.Tensor, cfg: SwimConfig, steps: int):
+def swim_scan(state, key: torch.Tensor, cfg: SwimConfig, steps: int,
+              telemetry: bool = False):
     """Run ``steps`` ticks; returns (final_state, (suspecting[steps],
-    dead_known[steps])).  Batches over a key batch as
-    :func:`broadcast_scan` does."""
+    dead_known[steps])), the trace last with ``telemetry``.  Batches over
+    a key batch as :func:`broadcast_scan` does."""
     consts = swim_constants(cfg, key.device)
     suspecting = _per_tick(key, steps)
     dead_known = _per_tick(key, steps)
+    trace = open_trace("swim", key, steps, telemetry)
     for t in range(steps):
+        prev = state if trace is not None else None
         state = swim_round(state, fold_in(key, t), cfg, consts)
         suspecting[..., t] = _count(state.view, VIEW_SUSPECT)
         dead_known[..., t] = _count(state.view, VIEW_DEAD)
-    return state, (suspecting, dead_known)
+        if trace is not None:
+            trace.record(t, prev, state, None, cfg)
+    outs = (suspecting, dead_known)
+    return state, with_trace(outs, trace)
 
 
-def lifeguard_scan(state, key: torch.Tensor, cfg, steps: int):
+def lifeguard_scan(state, key: torch.Tensor, cfg, steps: int,
+                   telemetry: bool = False):
     """Run ``steps`` fault-injected Lifeguard ticks; returns (final_state,
-    (suspecting, dead_known, fp_events, refutes, mean_awareness)).
+    (suspecting, dead_known, fp_events, refutes, mean_awareness)), the
+    trace last with ``telemetry``.
 
     ``fp_events`` diffs each tick's state against the one before it
     (fresh ALIVE->SUSPECT views while the subject is actually alive),
@@ -205,6 +235,7 @@ def lifeguard_scan(state, key: torch.Tensor, cfg, steps: int):
     outs = tuple(_per_tick(key, steps) for _ in range(4))
     suspecting, dead_known, fp_events, refutes = outs
     mean_awareness = _per_tick(key, steps, dtype=torch.float32)
+    trace = open_trace("lifeguard", key, steps, telemetry)
     for t in range(steps):
         nxt = lifeguard_round(state, fold_in(key, t), cfg, consts)
         newly_suspect = _count_nodes(
@@ -215,34 +246,43 @@ def lifeguard_scan(state, key: torch.Tensor, cfg, steps: int):
         fp_events[..., t] = torch.where(subject_live, newly_suspect, 0)
         refutes[..., t] = nxt.subject_inc - state.subject_inc
         mean_awareness[..., t] = mean_f32(nxt.awareness)
+        if trace is not None:
+            trace.record(t, state, nxt, None, cfg)
         state = nxt
-    return state, (*outs, mean_awareness)
+    outs = (*outs, mean_awareness)
+    return state, with_trace(outs, trace)
 
 
 def membership_scan(state, key: torch.Tensor, cfg: MembershipConfig,
-                    steps: int, track: tuple = ()):
+                    steps: int, track: tuple = (), telemetry: bool = False):
     """Run ``steps`` ticks of the dense full-membership model.  Per tick:
     for each tracked subject j the OTHER nodes viewing j SUSPECT / DEAD,
     the global count of suspect cells, and the sum of membership-list
     sizes.  Returns (final_state, (suspecting, dead_known, suspect_cells,
-    known_members)).  Batches over a key batch as
-    :func:`broadcast_scan` does."""
+    known_members)), the trace last with ``telemetry``.  Batches over a
+    key batch as :func:`broadcast_scan` does."""
     dev = key.device
     consts = membership_constants(cfg, dev)
     track_idx = torch.tensor(track, dtype=torch.int64).to(dev)
     batch = tuple(key.shape[:-1])
     outs = track_outputs(steps, len(track), torch.int32, dev, batch)
+    trace = open_trace("membership", key, steps, telemetry)
     for t in range(steps):
+        prev = state if trace is not None else None
         state = membership_round(state, fold_in(key, t), cfg, consts)
-        for o, v in zip(outs, membership_counts(state.key, track_idx)):
+        counts = membership_counts(state.key, track_idx)
+        for o, v in zip(outs, counts):
             o.select(len(batch), t).copy_(v)
-    return state, outs
+        if trace is not None:
+            trace.record(t, prev, state, counts, cfg)
+    return state, with_trace(outs, trace)
 
 
 def sparse_membership_scan(state, key: torch.Tensor, cfg, steps: int,
-                           track: tuple = ()):
+                           track: tuple = (), telemetry: bool = False):
     """The sparse twin of :func:`membership_scan`: counts match slots by
-    subject id, so they do not depend on the row order.  ``known_members``
+    subject id, so they do not depend on the row order (nor do its
+    metrics, the trace last with ``telemetry``).  ``known_members``
     is the float32 gauge ``f32(n) * n - dead_cells`` (n**2 overflows int32
     at the scales this model exists for; exact while the dead-cell count
     stays below 2**24).  Batches over a key batch as
@@ -253,12 +293,16 @@ def sparse_membership_scan(state, key: torch.Tensor, cfg, steps: int,
     n_sq = n_squared(cfg.base.n, dev)
     batch = tuple(key.shape[:-1])
     outs = track_outputs(steps, len(track), torch.float32, dev, batch)
+    trace = open_trace("sparse", key, steps, telemetry)
     for t in range(steps):
+        prev = state if trace is not None else None
         state = sparse_membership_round(state, fold_in(key, t), cfg, consts)
-        for o, v in zip(outs, sparse_membership_counts(state, track_idx,
-                                                       n_sq)):
+        counts = sparse_membership_counts(state, track_idx, n_sq)
+        for o, v in zip(outs, counts):
             o.select(len(batch), t).copy_(v)
-    return state, outs
+        if trace is not None:
+            trace.record(t, prev, state, counts, cfg)
+    return state, with_trace(outs, trace)
 
 
 def _sync(device: torch.device) -> None:
@@ -296,8 +340,8 @@ def _check_later_slice(**knobs) -> None:
     for name, (value, default) in knobs.items():
         if value != default:
             raise NotImplementedError(
-                f"{name}= is not ported yet (the multi-card placement and "
-                "telemetry come in later slices)"
+                f"{name}= is not ported yet (the reference's multi-card "
+                "placement waits for a machine with several cards)"
             )
 
 
@@ -318,6 +362,20 @@ def _device_name(device: torch.device) -> str:
     return device.type
 
 
+def _split_trace(outs: tuple, telemetry: bool):
+    """(outputs, trace): a ``telemetry=True`` scan's trace rides last."""
+    if not telemetry:
+        return outs, None
+    return outs[:-1], outs[-1]
+
+
+def _trace_fields(entrypoint: str, trace) -> dict:
+    """Report fields of a ``telemetry=True`` study (empty when off)."""
+    if trace is None:
+        return {}
+    return {"metric_names": metric_names(entrypoint), "metrics_trace": trace}
+
+
 def run_broadcast(
     cfg: BroadcastConfig,
     steps: int,
@@ -326,14 +384,18 @@ def run_broadcast(
     mesh=None,
     warmup: bool = True,
     exchange: str = "alltoall",
+    telemetry: bool = False,
     device=None,
 ) -> BroadcastReport:
     """One broadcast study.  ``mesh=`` selects the sharded plane
     (``parallel/shard.py``: D logical shards, outbox message routing,
     D == 1 bit-equal to the unsharded scan) and fills
     ``report.overflow``; ``exchange`` picks its outbox transport
-    (``"alltoall"`` | ``"ring"``).  Runs on CUDA unless ``device`` (or the
-    mesh's device) says otherwise."""
+    (``"alltoall"`` | ``"ring"``).  ``telemetry`` fills
+    ``report.metrics_trace`` with the ``[steps, M]`` Consul-named trace
+    (``consul_tpu_torch/obs``) and every other output stays the same; the
+    same seam is on every ``run_*`` below.  Runs on CUDA unless
+    ``device`` (or the mesh's device) says otherwise."""
     _check_exchange(exchange, mesh)
     if device is None and mesh is not None:
         device = mesh.device
@@ -345,13 +407,15 @@ def run_broadcast(
 
     if mesh is not None:
         def scan(st, k):
-            return sharded_broadcast_scan(st, k, cfg, steps, mesh, exchange)
+            return sharded_broadcast_scan(st, k, cfg, steps, mesh, exchange,
+                                          telemetry)
     else:
         def scan(st, k):
-            final, infected = broadcast_scan(st, k, cfg, steps)
-            return final, (infected,)
+            final, outs = broadcast_scan(st, k, cfg, steps, telemetry)
+            return final, (outs if telemetry else (outs,))
 
-    _, out, wall = _timed(make_state, scan, key, dev, warmup)
+    _, outs, wall = _timed(make_state, scan, key, dev, warmup)
+    out, trace = _split_trace(outs, telemetry)
     return BroadcastReport(
         n=cfg.n,
         ticks=steps,
@@ -360,6 +424,7 @@ def run_broadcast(
         wall_s=wall,
         overflow=int(out[1]) if mesh is not None else None,
         device=_device_name(dev),
+        **_trace_fields("broadcast", trace),
     )
 
 
@@ -368,16 +433,19 @@ def run_swim(
     steps: int,
     seed: int = 0,
     warmup: bool = True,
+    telemetry: bool = False,
     device=None,
 ) -> SwimReport:
     """One failure-detection study.  Runs on CUDA unless ``device`` says
-    otherwise; with ``warmup`` the study runs once untimed first."""
+    otherwise; with ``warmup`` the study runs once untimed first;
+    ``telemetry`` as :func:`run_broadcast`."""
     dev = resolve_device(device)
-    _, (sus, dead), wall = _timed(
+    _, outs, wall = _timed(
         lambda: swim_init(cfg, device=dev),
-        lambda st, k: swim_scan(st, k, cfg, steps),
+        lambda st, k: swim_scan(st, k, cfg, steps, telemetry),
         PRNGKey(seed, device=dev), dev, warmup,
     )
+    (sus, dead), trace = _split_trace(outs, telemetry)
     return SwimReport(
         n=cfg.n,
         ticks=steps,
@@ -387,6 +455,7 @@ def run_swim(
         dead_known=dead,
         wall_s=wall,
         device=_device_name(dev),
+        **_trace_fields("swim", trace),
     )
 
 
@@ -395,19 +464,21 @@ def run_lifeguard(
     steps: int,
     seed: int = 0,
     warmup: bool = True,
+    telemetry: bool = False,
     device=None,
 ) -> FalsePositiveReport:
     """Fault-injected Lifeguard study (``cfg``: a LifeguardConfig): the
-    accuracy (false-positive) workload, with :func:`run_swim`'s device and
-    timing contract."""
+    accuracy (false-positive) workload, with :func:`run_swim`'s device,
+    timing and telemetry contract."""
     from consul_tpu_torch.models.lifeguard import lifeguard_init
 
     dev = resolve_device(device)
-    _, (sus, dead, fp, refutes, aware), wall = _timed(
+    _, outs, wall = _timed(
         lambda: lifeguard_init(cfg, device=dev),
-        lambda st, k: lifeguard_scan(st, k, cfg, steps),
+        lambda st, k: lifeguard_scan(st, k, cfg, steps, telemetry),
         PRNGKey(seed, device=dev), dev, warmup,
     )
+    (sus, dead, fp, refutes, aware), trace = _split_trace(outs, telemetry)
     return FalsePositiveReport(
         n=cfg.n,
         ticks=steps,
@@ -423,11 +494,12 @@ def run_lifeguard(
         mean_awareness=aware,
         wall_s=wall,
         device=_device_name(dev),
+        **_trace_fields("lifeguard", trace),
     )
 
 
-def _membership_report(cfg: MembershipConfig, track, outs, wall,
-                       dev) -> MembershipReport:
+def _membership_report(cfg: MembershipConfig, track, outs, wall, dev,
+                       entrypoint: str, trace) -> MembershipReport:
     sus, dead, sus_cells, known = outs
     return MembershipReport(
         n=cfg.n,
@@ -441,6 +513,7 @@ def _membership_report(cfg: MembershipConfig, track, outs, wall,
         known_members=known,
         wall_s=wall,
         device=_device_name(dev),
+        **_trace_fields(entrypoint, trace),
     )
 
 
@@ -460,12 +533,11 @@ def run_membership(
     detection curves come back per tick.  ``mesh=`` runs the sharded twin
     (``parallel/shard.py``: observer rows over D logical shards, gossip
     over the outbox, budgeted push/pull at D > 1) and fills
-    ``report.overflow``; ``exchange`` picks its outbox transport.  Runs
-    on CUDA unless ``device`` (or the mesh's device) says otherwise;
-    ``sharded`` (the reference's multi-card placement) and ``telemetry``
-    wait for later slices and are rejected."""
-    _check_later_slice(sharded=(sharded, False),
-                       telemetry=(telemetry, False))
+    ``report.overflow``; ``exchange`` picks its outbox transport;
+    ``telemetry`` as :func:`run_broadcast`.  Runs on CUDA unless
+    ``device`` (or the mesh's device) says otherwise; ``sharded`` (the
+    reference's multi-card placement) is rejected."""
+    _check_later_slice(sharded=(sharded, False))
     _check_exchange(exchange, mesh)
     if device is None and mesh is not None:
         device = mesh.device
@@ -474,14 +546,16 @@ def run_membership(
     if mesh is not None:
         def scan(st, k):
             return sharded_membership_scan(st, k, cfg, steps, mesh, track,
-                                           exchange)
+                                           exchange, telemetry)
     else:
         def scan(st, k):
-            return membership_scan(st, k, cfg, steps, track)
+            return membership_scan(st, k, cfg, steps, track, telemetry)
 
     _, outs, wall = _timed(lambda: membership_init(cfg, device=dev), scan,
                            PRNGKey(seed, device=dev), dev, warmup)
-    report = _membership_report(cfg, track, outs[:4], wall, dev)
+    outs, trace = _split_trace(outs, telemetry)
+    report = _membership_report(cfg, track, outs[:4], wall, dev,
+                                "membership", trace)
     if mesh is not None:
         report.overflow = int(outs[4])
     return report
@@ -502,10 +576,9 @@ def run_membership_sparse(
     delivered through the sort-merge path (``ops/sortmerge.py``).  Returns
     ``(report, overflow)``, the final state's overflow counter.  ``mesh=``
     shards the observer rows over D logical shards (the overflow then
-    also counts outbox misses); ``exchange`` picks the outbox transport.
-    Runs on CUDA unless ``device`` (or the mesh's device) says otherwise;
-    ``telemetry`` waits for a later slice and is rejected."""
-    _check_later_slice(telemetry=(telemetry, False))
+    also counts outbox misses); ``exchange`` picks the outbox transport;
+    ``telemetry`` as :func:`run_broadcast`.  Runs on CUDA unless
+    ``device`` (or the mesh's device) says otherwise."""
     _check_exchange(exchange, mesh)
     if device is None and mesh is not None:
         device = mesh.device
@@ -514,15 +587,18 @@ def run_membership_sparse(
     if mesh is not None:
         def scan(st, k):
             return sharded_sparse_membership_scan(st, k, cfg, steps, mesh,
-                                                  track, exchange)
+                                                  track, exchange, telemetry)
     else:
         def scan(st, k):
-            return sparse_membership_scan(st, k, cfg, steps, track)
+            return sparse_membership_scan(st, k, cfg, steps, track,
+                                          telemetry)
 
     final, outs, wall = _timed(
         lambda: sparse_membership_init(cfg, device=dev), scan,
         PRNGKey(seed, device=dev), dev, warmup)
-    report = _membership_report(cfg.base, track, outs, wall, dev)
+    outs, trace = _split_trace(outs, telemetry)
+    report = _membership_report(cfg.base, track, outs, wall, dev, "sparse",
+                                trace)
     report.forgotten = int(final.forgotten)
     return report, int(final.overflow)
 
@@ -541,7 +617,8 @@ def run_multidc(
     study.  Runs on CUDA unless ``device`` says otherwise.  ``sharded``
     and ``mesh`` (the reference's placement of whole segments on each of
     several devices, which leaves the results unchanged) wait for the
-    multi-card work and are rejected."""
+    multi-card work and are rejected.  The reference has no telemetry
+    seam here."""
     _check_later_slice(sharded=(sharded, False), mesh=(mesh, None))
     dev = resolve_device(device)
     _, (total, per_seg), wall = _timed(
@@ -577,26 +654,26 @@ def run_geo(
     Returns a ``geo.GeoReport``.  ``mesh=`` runs the sharded twin
     (segments laid out contiguously over D logical shards, WAN units over
     the outbox) and fills ``report.shard_overflow``; ``exchange`` picks
-    its transport.  Runs on CUDA unless ``device`` (or the mesh's device)
-    says otherwise; ``telemetry`` waits for a later slice and is
-    rejected."""
+    its transport; ``telemetry`` as :func:`run_broadcast`.  Runs on CUDA
+    unless ``device`` (or the mesh's device) says otherwise."""
     from consul_tpu_torch.geo.model import geo_init
     from consul_tpu_torch.geo.report import GeoReport
 
-    _check_later_slice(telemetry=(telemetry, False))
     _check_exchange(exchange, mesh)
     if device is None and mesh is not None:
         device = mesh.device
     dev = resolve_device(device)
     if mesh is not None:
         def scan(st, k):
-            return sharded_geo_scan(st, k, cfg, steps, mesh, exchange)
+            return sharded_geo_scan(st, k, cfg, steps, mesh, exchange,
+                                    telemetry)
     else:
         def scan(st, k):
-            return geo_scan(st, k, cfg, steps)
+            return geo_scan(st, k, cfg, steps, telemetry)
 
     _, outs, wall = _timed(lambda: geo_init(cfg, device=dev), scan,
                            PRNGKey(seed, device=dev), dev, warmup)
+    outs, trace = _split_trace(outs, telemetry)
     per_segment, offered, admitted, queued, overflow, wasted = outs[:6]
     return GeoReport(
         n=cfg.n,
@@ -615,6 +692,7 @@ def run_geo(
         wall_s=wall,
         shard_overflow=int(outs[6][-1]) if mesh is not None else None,
         device=_device_name(dev),
+        **_trace_fields("geo", trace),
     )
 
 
@@ -636,9 +714,8 @@ def run_streamcast(
     typo fails in the config's validation).  ``mesh=`` runs the sharded
     twin (chunk planes over D logical shards, edges messages over the
     outbox) and fills ``report.shard_overflow``; ``exchange`` picks its
-    transport.  Runs on CUDA unless ``device`` (or the mesh's device)
-    says otherwise; ``telemetry`` waits for a later slice and is
-    rejected."""
+    transport; ``telemetry`` as :func:`run_broadcast`.  Runs on CUDA
+    unless ``device`` (or the mesh's device) says otherwise."""
     import dataclasses
 
     from consul_tpu_torch.streamcast.model import streamcast_init
@@ -646,20 +723,21 @@ def run_streamcast(
 
     if policy is not None and policy != cfg.policy:
         cfg = dataclasses.replace(cfg, policy=policy)
-    _check_later_slice(telemetry=(telemetry, False))
     _check_exchange(exchange, mesh)
     if device is None and mesh is not None:
         device = mesh.device
     dev = resolve_device(device)
     if mesh is not None:
         def scan(st, k):
-            return sharded_streamcast_scan(st, k, cfg, steps, mesh, exchange)
+            return sharded_streamcast_scan(st, k, cfg, steps, mesh, exchange,
+                                           telemetry)
     else:
         def scan(st, k):
-            return streamcast_scan(st, k, cfg, steps)
+            return streamcast_scan(st, k, cfg, steps, telemetry)
 
     _, outs, wall = _timed(lambda: streamcast_init(cfg, device=dev), scan,
                            PRNGKey(seed, device=dev), dev, warmup)
+    outs, trace = _split_trace(outs, telemetry)
     (slot_event, slot_birth, done_count, offered, delivered, quiesced,
      overflow, coalesced, sent) = outs[:9]
     return StreamcastReport(
@@ -682,6 +760,7 @@ def run_streamcast(
         policy=cfg.policy,
         shard_overflow=int(outs[9][-1]) if mesh is not None else None,
         device=_device_name(dev),
+        **_trace_fields("streamcast", trace),
     )
 
 
@@ -701,8 +780,9 @@ def run_sweep(universe, warmup: bool = True, telemetry: bool = False,
     ``mesh=`` composes the universe axis with the node shards (the sweep
     x shard composition of ``make_sweep``): the report gains
     ``outbox_overflow``, the overflow per universe, and ``devices``, the
-    shard count; ``exchange`` picks the outbox transport.  ``telemetry=``
-    waits for a later slice and raises."""
+    shard count; ``exchange`` picks the outbox transport.  ``telemetry``
+    fills ``report.metrics_trace`` with the ``[U, steps, M]`` trace (and
+    ``metric_names``); every other output stays the same."""
     from consul_tpu_torch.sweep.frontier import summarize_sweep
     from consul_tpu_torch.sweep.universe import make_sweep, stacked_init
 
@@ -730,11 +810,17 @@ def run_sweep(universe, warmup: bool = True, telemetry: bool = False,
     if mesh is not None:
         *outs, overflow = outs
         outs = tuple(outs)
+    # The [U, steps, M] trace rides last; the summarizer reads the
+    # telemetry-off outputs.
+    outs, trace = _split_trace(outs, telemetry)
     report = summarize_sweep(
         universe, outs[0] if universe.entrypoint == "broadcast" else outs,
         wall)
     report.device = _device_name(dev)
     report.outputs = outs
+    if trace is not None:
+        report.metric_names = metric_names(universe.entrypoint)
+        report.metrics_trace = trace
     if overflow is not None:
         report.outbox_overflow = overflow
         report.devices = mesh.n_shards

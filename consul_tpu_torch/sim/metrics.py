@@ -28,6 +28,10 @@ class BroadcastReport:
     # would.
     overflow: Optional[int] = None
     device: str = ""              # what the run ran on
+    # telemetry=True studies only (consul_tpu_torch/obs): the [steps, M]
+    # Consul-named metrics trace and its column names.
+    metric_names: tuple = ()
+    metrics_trace: Optional[np.ndarray] = None
 
     def time_to_ms(self, frac: float) -> Optional[float]:
         t = time_to_fraction(self.infected, self.n, frac)
@@ -82,6 +86,10 @@ class FalsePositiveReport:
     mean_awareness: np.ndarray   # float32[ticks]
     wall_s: float
     device: str = ""             # what the run ran on
+    # telemetry=True studies only (consul_tpu_torch/obs): the [steps, M]
+    # Consul-named metrics trace and its column names.
+    metric_names: tuple = ()
+    metrics_trace: Optional[np.ndarray] = None
 
     @property
     def rounds_per_sec(self) -> float:
@@ -158,6 +166,10 @@ class MembershipReport:
     # Sharded dense runs only: outbox and push/pull budget misses.
     overflow: Optional[int] = None
     device: str = ""              # what the run ran on
+    # telemetry=True studies only (consul_tpu_torch/obs): the [steps, M]
+    # Consul-named metrics trace and its column names.
+    metric_names: tuple = ()
+    metrics_trace: Optional[np.ndarray] = None
     # Sparse runs only: the final state's count of evicted settled cells.
     forgotten: Optional[int] = None
 
@@ -208,6 +220,10 @@ class SwimReport:
     dead_known: np.ndarray        # nodes viewing subject DEAD, per tick
     wall_s: float
     device: str = ""              # what the run ran on
+    # telemetry=True studies only (consul_tpu_torch/obs): the [steps, M]
+    # Consul-named metrics trace and its column names.
+    metric_names: tuple = ()
+    metrics_trace: Optional[np.ndarray] = None
 
     @property
     def rounds_per_sec(self) -> float:

@@ -27,13 +27,17 @@ either arm, for ``run_geo``.
 Each returns the reference's summary dict and takes ``device=``
 (CUDA unless given).  ``devices=`` lays a study over D logical shards of
 one card (``parallel/mesh.py``) and ``exchange=`` picks the outbox
-transport (``"ring"``: the CUDA ring kernel); ``telemetry=`` waits for a
-later slice and is rejected.
+transport (``"ring"``: the CUDA ring kernel); ``telemetry=True`` (dev3,
+probe1k, event100k, stream100k, geo100k) runs the study with the in-scan
+metrics on and adds the bridged /v1/agent/metrics-shaped snapshot under
+``"metrics"``.  :func:`run_scenario` runs a preset of :data:`SCENARIOS` by
+name (``python -m consul_tpu_torch.cli sim``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 
@@ -45,7 +49,6 @@ from consul_tpu_torch.models import (
 )
 from consul_tpu_torch.protocol import LAN, WAN
 from consul_tpu_torch.sim.engine import (
-    _check_later_slice,
     run_broadcast,
     run_geo,
     run_lifeguard,
@@ -56,14 +59,27 @@ from consul_tpu_torch.sim.engine import (
 )
 
 
+def _metrics_out(entrypoint: str, rep) -> dict:
+    """Bridge a ``telemetry=True`` report into a fresh ``Metrics`` (not the
+    process-global sink) and return the /v1/agent/metrics-shaped snapshot
+    for the scenario summary."""
+    from consul_tpu_torch.obs import bridge_report
+    from consul_tpu_torch.telemetry import Metrics
+
+    return {"metrics": bridge_report(entrypoint, rep, Metrics()).snapshot()}
+
+
 def dev3(seed: int = 0, telemetry: bool = False, device=None) -> dict:
     """BASELINE config 1: the 3-node ``agent -dev`` LAN pool, one user
     event, exact edges delivery, 10 ticks."""
-    _check_later_slice(telemetry=(telemetry, False))
     cfg = BroadcastConfig(n=3, profile=LAN, delivery="edges")
     rep = run_broadcast(cfg, steps=10, seed=seed, warmup=False,
-                        device=device)
-    return {"scenario": "dev3", **rep.summary()}
+                        telemetry=telemetry, device=device)
+    return {
+        "scenario": "dev3",
+        **rep.summary(),
+        **(_metrics_out("broadcast", rep) if telemetry else {}),
+    }
 
 
 def probe1k(seed: int = 0, devices: int = None, exchange: str = "alltoall",
@@ -75,7 +91,6 @@ def probe1k(seed: int = 0, devices: int = None, exchange: str = "alltoall",
     twin); without it a non-default ``exchange`` is rejected."""
     from consul_tpu_torch.parallel import mesh_for
 
-    _check_later_slice(telemetry=(telemetry, False))
     failed = tuple(range(0, 1000, 100))  # 10 spread-out subjects
     cfg = MembershipConfig(
         n=1000, loss=0.0, profile=LAN, fanout=3,
@@ -84,7 +99,8 @@ def probe1k(seed: int = 0, devices: int = None, exchange: str = "alltoall",
     rep = run_membership(cfg, steps=300, seed=seed, track=failed,
                          warmup=False,
                          mesh=mesh_for(devices) if devices else None,
-                         exchange=exchange, device=device)
+                         exchange=exchange, telemetry=telemetry,
+                         device=device)
     first_sus = [rep.first_detection_ms(i) for i in range(len(failed))]
     live = cfg.n - len(failed)
     conv = [rep.dead_converged(i, live) for i in range(len(failed))]
@@ -103,6 +119,7 @@ def probe1k(seed: int = 0, devices: int = None, exchange: str = "alltoall",
         **({"devices": devices, "exchange_backend": exchange,
             "shard_overflow": rep.overflow}
            if devices else {}),
+        **(_metrics_out("membership", rep) if telemetry else {}),
     }
 
 
@@ -122,18 +139,19 @@ def event100k(seed: int = 0, devices: int = None, exchange: str = "alltoall",
     non-default ``exchange`` is rejected."""
     from consul_tpu_torch.parallel import mesh_for
 
-    _check_later_slice(telemetry=(telemetry, False))
     cfg = event100k_config(devices)
     if devices:
         rep = run_broadcast(cfg, steps=100, seed=seed,
                             mesh=mesh_for(devices), exchange=exchange,
-                            device=device)
+                            telemetry=telemetry, device=device)
         return {"scenario": "event100k", **rep.summary(),
                 "devices": devices, "exchange_backend": exchange,
-                "shard_overflow": rep.overflow}
+                "shard_overflow": rep.overflow,
+                **(_metrics_out("broadcast", rep) if telemetry else {})}
     rep = run_broadcast(cfg, steps=100, seed=seed, exchange=exchange,
-                        device=device)
-    return {"scenario": "event100k", **rep.summary()}
+                        telemetry=telemetry, device=device)
+    return {"scenario": "event100k", **rep.summary(),
+            **(_metrics_out("broadcast", rep) if telemetry else {})}
 
 
 def stream100k_config(n: int = 100_000, steps: int = 150,
@@ -165,16 +183,17 @@ def stream100k(seed: int = 0, n: int = 100_000, steps: int = 150,
     ``n``/``steps`` scale down for CPU runs."""
     from consul_tpu_torch.parallel import mesh_for
 
-    _check_later_slice(telemetry=(telemetry, False))
     cfg = stream100k_config(n, steps, devices, policy)
     rep = run_streamcast(cfg, steps=steps, seed=seed, warmup=False,
                          mesh=mesh_for(devices) if devices else None,
-                         exchange=exchange, device=device)
+                         exchange=exchange, telemetry=telemetry,
+                         device=device)
     return {
         "scenario": "stream100k",
         **rep.summary(),
         **({"devices": devices, "exchange_backend": exchange}
            if devices else {}),
+        **(_metrics_out("streamcast", rep) if telemetry else {}),
     }
 
 
@@ -270,7 +289,7 @@ def multidc1m(seed: int = 0, device=None) -> dict:
 
 def geo100k(seed: int = 0, n: int = 100_000, steps: int = 120,
             devices: int = None, exchange: str = "alltoall",
-            device=None) -> dict:
+            telemetry: bool = False, device=None) -> dict:
     """100k-node geo/WAN study: 8 DCs with Vivaldi-derived per-link
     latency, bandwidth-capped WAN links under a mid-run brownout, and
     adaptive anti-entropy between the bridge sets.  ``devices`` lays the
@@ -299,11 +318,12 @@ def geo100k(seed: int = 0, n: int = 100_000, steps: int = 120,
     )
     rep = run_geo(cfg, steps=steps, seed=seed, warmup=False,
                   mesh=mesh_for(devices) if devices else None,
-                  exchange=exchange, device=device)
+                  exchange=exchange, telemetry=telemetry, device=device)
     return {
         "scenario": "geo100k",
         **rep.summary(),
         "vivaldi_rel_rtt_error": round(vinfo["rel_rtt_error"], 4),
+        **(_metrics_out("geo", rep) if telemetry else {}),
         **({"devices": devices, "exchange_backend": exchange}
            if devices else {}),
     }
@@ -332,3 +352,64 @@ def geo_ab_config(latency: tuple, n: int = 1_000_000, adaptive: bool = True):
         wan_queue_bytes=2 * base_bytes, ae_batch=16, adaptive=adaptive,
         loss_wan=0.05, origins=origins, faults=faults,
     )
+
+
+SCENARIOS: dict[str, Callable[..., dict]] = {
+    "dev3": dev3,
+    "probe1k": probe1k,
+    "event100k": event100k,
+    "stream100k": stream100k,
+    "geo100k": geo100k,
+    "suspect1m": suspect1m,
+    "multidc1m": multidc1m,
+    "degraded1m": degraded1m,
+}
+
+
+def run_scenario(name: str, seed: int = 0, devices: int = None,
+                 exchange: str = None, telemetry: bool = False,
+                 policy: str = None, device=None) -> dict:
+    """Run a preset by name, on ``device`` (CUDA unless given).
+    ``devices`` lays the node axis over D logical shards for the presets
+    that support it (probe1k, event100k, stream100k, geo100k); asking it
+    of any other preset is an error, not a silent unsharded run.
+    ``exchange`` picks the sharded plane's outbox transport and so
+    requires ``devices``.  ``telemetry`` runs the study with the in-scan
+    metrics on and adds the bridged /v1/agent/metrics-shaped snapshot
+    under ``"metrics"`` (``cli sim --metrics``); ``policy`` picks the
+    streamcast chunk-selection schedule (``cli sim stream100k --policy``).
+    Presets without the seam reject either loudly."""
+    import inspect
+
+    try:
+        fn = SCENARIOS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown scenario {name!r}; choose from {sorted(SCENARIOS)}"
+        ) from None
+    if exchange and not devices:
+        raise ValueError(
+            "--exchange selects the sharded plane's outbox transport "
+            "and requires --devices"
+        )
+    params = inspect.signature(fn).parameters
+    if telemetry and "telemetry" not in params:
+        raise ValueError(
+            f"scenario {name!r} does not support --metrics"
+        )
+    if policy and "policy" not in params:
+        raise ValueError(
+            f"scenario {name!r} does not support --policy (the "
+            "chunk-selection seam belongs to the streamcast plane)"
+        )
+    tele_kw = {"telemetry": True} if telemetry else {}
+    pol_kw = {"policy": policy} if policy else {}
+    if devices:
+        if "devices" not in params:
+            raise ValueError(
+                f"scenario {name!r} does not support --devices"
+            )
+        return fn(seed=seed, devices=devices,
+                  **({"exchange": exchange} if exchange else {}),
+                  **tele_kw, **pol_kw, device=device)
+    return fn(seed=seed, **tele_kw, **pol_kw, device=device)

@@ -18,6 +18,7 @@ index t has latency ``(t + 1 - b) * tick_ms``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -104,6 +105,10 @@ class StreamcastReport:
     # Sharded runs only: outbox budget misses.
     shard_overflow: int = None
     device: str = ""            # what the run ran on (not in summary())
+    # telemetry=True studies only (consul_tpu_torch/obs): the [steps, M]
+    # Consul-named metrics trace and its column names.
+    metric_names: tuple = ()
+    metrics_trace: Optional[np.ndarray] = None
 
     @property
     def sim_seconds(self) -> float:

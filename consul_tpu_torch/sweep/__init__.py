@@ -13,7 +13,8 @@ coverage matrices.
 
   universe.py   the :class:`Universe` spec (per-universe keys, ``[U]``
                 knob tensors vs static structure) and :func:`make_sweep`,
-                one batched program per (entrypoint, U, mesh, exchange)
+                one batched program per (entrypoint, U, telemetry, mesh,
+                exchange)
   frontier.py   per-universe metric reduction into a
                 :class:`SweepReport` + Pareto-frontier extraction, and
                 the streaming curve's points and knee
@@ -27,7 +28,8 @@ coverage matrices.
 
 ``sim.engine.run_sweep`` runs a :class:`Universe` and returns its
 :class:`SweepReport` (with ``outbox_overflow`` and ``devices`` on the
-composed plane).  ``telemetry=`` waits for a later slice and raises.
+composed plane) and, with ``telemetry=True``, the ``[U, steps, M]``
+metrics trace (``metrics_trace``, ``metric_names``).
 """
 
 from consul_tpu_torch.sweep.frontier import (

@@ -142,6 +142,10 @@ class SweepReport:
     # The stacked per-tick host outputs the metrics were reduced from
     # ([U, steps, ...], run_sweep sets them).
     outputs: tuple = None
+    # telemetry=True sweeps only (consul_tpu_torch/obs): the batched
+    # [U, steps, M] Consul-named metrics trace and its column names.
+    metric_names: tuple = ()
+    metrics_trace: "np.ndarray" = None
     # Composed (mesh=) sweeps only: the per-universe overflow (outbox
     # budget misses plus the family's own budget deferrals); None for an
     # unsharded sweep.

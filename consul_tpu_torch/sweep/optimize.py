@@ -172,6 +172,7 @@ def optimize_sweep(
     device=None,
     mesh=None,
     exchange: str = "alltoall",
+    telemetry: bool = False,
 ) -> OptimizeResult:
     """Find the objective's optimum (or knee) over a grid preset's
     knob space in a few batched generations.
@@ -185,7 +186,9 @@ def optimize_sweep(
     objective stays <= knee_at.  Every generation is one
     ``run_sweep`` on ``device`` (CUDA unless given); ``mesh=``/
     ``exchange=`` run every generation on the composed plane, and the
-    answer's ``overflow_total`` sums their overflow.
+    answer's ``overflow_total`` sums their overflow; ``telemetry`` runs
+    every generation with the metrics trace on (the objective reads the
+    same outputs).
 
     ``evaluate`` (tests): a callable ``(values_rows: tuple) ->
     float[U]`` replacing the real run_sweep evaluator — the optimizer
@@ -275,7 +278,8 @@ def optimize_sweep(
                 universe, dict(zip(universe.knobs, values_rows)), U
             )
             rep = engine.run_sweep(gen, warmup=False, device=device,
-                                   mesh=mesh, exchange=exchange)
+                                   telemetry=telemetry, mesh=mesh,
+                                   exchange=exchange)
             if rep.outbox_overflow is not None:
                 overflow_seen.append(
                     int(np.asarray(rep.outbox_overflow).sum()))

@@ -298,16 +298,23 @@ PRESETS: dict = {
 }
 
 
-def make_preset(name: str, universes=None, seed: int = 0) -> Universe:
+def make_preset(name: str, universes=None, seed: int = 0,
+                device=None) -> Universe:
     """Build a preset's Universe (``universes`` overrides U for seed
     presets; grid presets derive U from their ladders and reject it).
-    Other sizes, and ``wan_brownout``'s ``device=``, go to the factories
-    in :data:`PRESETS` directly."""
+    ``device`` reaches the factories that compute on one
+    (``wan_brownout``'s Vivaldi latencies; CUDA unless given).  Other
+    sizes go to the factories in :data:`PRESETS` directly."""
+    import inspect
+
     if name not in PRESETS:
         raise ValueError(
             f"unknown sweep preset {name!r} (have: {sorted(PRESETS)})"
         )
-    return PRESETS[name](universes=universes, seed=seed)
+    factory = PRESETS[name]
+    kw = ({"device": device}
+          if "device" in inspect.signature(factory).parameters else {})
+    return factory(universes=universes, seed=seed, **kw)
 
 
 def main(argv=None) -> int:

@@ -92,7 +92,9 @@ class _EntrypointSpec:
 
     name: str
     init: Callable[[Any, Any], Any]     # (cfg, device) -> state
-    call: Callable      # (state, keys, cfg, steps, track) -> (final, outs)
+    # (state, keys, cfg, steps, track, telemetry) -> (final, outs), the
+    # [U, steps, M] trace last in ``outs`` with telemetry.
+    call: Callable
     base_cfg: Callable[[Any], Any]      # cfg -> the profile/n config
     knob_paths: frozenset
     aggregate_only: frozenset           # legal only under aggregate
@@ -100,10 +102,11 @@ class _EntrypointSpec:
     bandwidth_paths: bool = False       # "faults.bandwidth[*].…" legal
     # The sweep x shard seam: the batched sharded twin
     # (parallel/shard.py), normalized to
-    #   (state, keys, cfg, steps, track, mesh, exchange)
+    #   (state, keys, cfg, steps, track, telemetry, mesh, exchange)
     #     -> (final, outs_core, overflow[U])
-    # with ``outs_core`` exactly the unsharded sweep's outputs, so U = 1 x
-    # D = 1 composed equals the unsharded sweep.  None: no sharded twin
+    # with ``outs_core`` exactly the unsharded sweep's outputs (the trace
+    # last with telemetry), so U = 1 x D = 1 composed equals the
+    # unsharded sweep.  None: no sharded twin
     # (swim, lifeguard), and make_sweep(mesh=) rejects the entrypoint.
     sharded: Optional[Callable] = None
 
@@ -111,51 +114,61 @@ class _EntrypointSpec:
 # --- sharded-twin adapters (the reference's _sharded_* seam) -------------
 
 
-def _sharded_broadcast(s, k, c, steps, track, mesh, ex):
-    final, (infected, ov) = shard.sharded_broadcast_scan(s, k, c, steps,
-                                                         mesh, ex)
-    return final, infected, ov
+def _split(outs: tuple, telemetry: bool):
+    """(the twin's own outputs, the trace as a 1-tuple or ())."""
+    return (outs[:-1], outs[-1:]) if telemetry else (outs, ())
 
 
-def _sharded_membership(s, k, c, steps, track, mesh, ex):
-    final, (*core, ov) = shard.sharded_membership_scan(s, k, c, steps, mesh,
-                                                       track, ex)
-    return final, tuple(core), ov
+def _sharded_broadcast(s, k, c, steps, track, telemetry, mesh, ex):
+    final, outs = shard.sharded_broadcast_scan(s, k, c, steps, mesh, ex,
+                                               telemetry)
+    (infected, ov), trace = _split(outs, telemetry)
+    return final, ((infected, *trace) if telemetry else infected), ov
 
 
-def _sharded_sparse(s, k, c, steps, track, mesh, ex):
+def _sharded_membership(s, k, c, steps, track, telemetry, mesh, ex):
+    final, outs = shard.sharded_membership_scan(s, k, c, steps, mesh, track,
+                                                ex, telemetry)
+    (*core, ov), trace = _split(outs, telemetry)
+    return final, (*core, *trace), ov
+
+
+def _sharded_sparse(s, k, c, steps, track, telemetry, mesh, ex):
     final, outs = shard.sharded_sparse_membership_scan(s, k, c, steps, mesh,
-                                                       track, ex)
+                                                       track, ex, telemetry)
     # The sparse plane carries its overflow in the state (model budgets
     # and outbox misses, one count as unsharded).
     return final, outs, final.overflow
 
 
-def _sharded_streamcast(s, k, c, steps, track, mesh, ex):
-    final, (*core, ov_t) = shard.sharded_streamcast_scan(s, k, c, steps,
-                                                         mesh, ex)
+def _sharded_streamcast(s, k, c, steps, track, telemetry, mesh, ex):
+    final, outs = shard.sharded_streamcast_scan(s, k, c, steps, mesh, ex,
+                                                telemetry)
+    (*core, ov_t), trace = _split(outs, telemetry)
     # The outbox overflow rides the per-tick outputs; the last tick holds
     # the total.
-    return final, tuple(core), ov_t[..., -1]
+    return final, (*core, *trace), ov_t[..., -1]
 
 
-def _sharded_geo(s, k, c, steps, track, mesh, ex):
-    final, (*core, ov_t) = shard.sharded_geo_scan(s, k, c, steps, mesh, ex)
-    return final, tuple(core), ov_t[..., -1]
+def _sharded_geo(s, k, c, steps, track, telemetry, mesh, ex):
+    final, outs = shard.sharded_geo_scan(s, k, c, steps, mesh, ex, telemetry)
+    (*core, ov_t), trace = _split(outs, telemetry)
+    return final, (*core, *trace), ov_t[..., -1]
 
 
 SWEEP_ENTRYPOINTS: dict = {
     "swim": _EntrypointSpec(
         name="swim", init=lambda c, d: swim_init(c, device=d),
-        call=lambda s, k, c, steps, track: engine.swim_scan(s, k, c, steps),
+        call=lambda s, k, c, steps, track, tel: engine.swim_scan(
+            s, k, c, steps, tel),
         base_cfg=lambda c: c,
         knob_paths=frozenset({"loss", "suspicion_scale"}),
         aggregate_only=frozenset({"profile.gossip_nodes"}),
     ),
     "lifeguard": _EntrypointSpec(
         name="lifeguard", init=lambda c, d: lifeguard_init(c, device=d),
-        call=lambda s, k, c, steps, track: engine.lifeguard_scan(
-            s, k, c, steps),
+        call=lambda s, k, c, steps, track, tel: engine.lifeguard_scan(
+            s, k, c, steps, tel),
         base_cfg=lambda c: c,
         knob_paths=frozenset({"loss", "suspicion_scale", "ack_late"}),
         aggregate_only=frozenset({"profile.gossip_nodes"}),
@@ -164,8 +177,8 @@ SWEEP_ENTRYPOINTS: dict = {
     "broadcast": _EntrypointSpec(
         name="broadcast",
         init=lambda c, d: broadcast_init(c, origin=0, device=d),
-        call=lambda s, k, c, steps, track: engine.broadcast_scan(
-            s, k, c, steps),
+        call=lambda s, k, c, steps, track, tel: engine.broadcast_scan(
+            s, k, c, steps, tel),
         base_cfg=lambda c: c,
         knob_paths=frozenset({"loss"}),
         aggregate_only=frozenset({"fanout"}),
@@ -173,8 +186,8 @@ SWEEP_ENTRYPOINTS: dict = {
     ),
     "membership": _EntrypointSpec(
         name="membership", init=lambda c, d: membership_init(c, device=d),
-        call=lambda s, k, c, steps, track: engine.membership_scan(
-            s, k, c, steps, track),
+        call=lambda s, k, c, steps, track, tel: engine.membership_scan(
+            s, k, c, steps, track, tel),
         base_cfg=lambda c: c,
         knob_paths=frozenset({"loss", "suspicion_scale"}),
         aggregate_only=frozenset(),
@@ -183,8 +196,8 @@ SWEEP_ENTRYPOINTS: dict = {
     "sparse": _EntrypointSpec(
         name="sparse",
         init=lambda c, d: sparse_membership_init(c, device=d),
-        call=lambda s, k, c, steps, track: engine.sparse_membership_scan(
-            s, k, c, steps, track),
+        call=lambda s, k, c, steps, track, tel: (
+            engine.sparse_membership_scan(s, k, c, steps, track, tel)),
         base_cfg=lambda c: c.base,
         knob_paths=frozenset({"base.loss", "base.suspicion_scale"}),
         aggregate_only=frozenset(),
@@ -196,8 +209,8 @@ SWEEP_ENTRYPOINTS: dict = {
     # ``policy`` stays static (one batched program per policy).
     "streamcast": _EntrypointSpec(
         name="streamcast", init=lambda c, d: streamcast_init(c, device=d),
-        call=lambda s, k, c, steps, track: engine.streamcast_scan(
-            s, k, c, steps),
+        call=lambda s, k, c, steps, track, tel: engine.streamcast_scan(
+            s, k, c, steps, tel),
         base_cfg=lambda c: c,
         knob_paths=frozenset({"loss", "rate", "chunk_budget",
                               "size_tail", "hotspot"}),
@@ -209,7 +222,8 @@ SWEEP_ENTRYPOINTS: dict = {
     # rate knobs; the brownout severity rides faults.bandwidth[*].scale.
     "geo": _EntrypointSpec(
         name="geo", init=lambda c, d: geo_init(c, device=d),
-        call=lambda s, k, c, steps, track: engine.geo_scan(s, k, c, steps),
+        call=lambda s, k, c, steps, track, tel: engine.geo_scan(
+            s, k, c, steps, tel),
         base_cfg=lambda c: c,
         knob_paths=frozenset({"loss_lan", "loss_wan", "ae_gain"}),
         aggregate_only=frozenset(),
@@ -465,7 +479,8 @@ def stacked_init(universe: Universe, device=None):
 
 def make_sweep(entrypoint: str, U: int, telemetry: bool = False,
                mesh=None, exchange: str = "alltoall"):
-    """The batched scan program for (entrypoint, U, mesh, exchange):
+    """The batched scan program for (entrypoint, U, telemetry, mesh,
+    exchange):
 
         sweep(stacked_state, keys, values, cfg, steps, knobs, track)
           -> (stacked_final, stacked_outs[, overflow])
@@ -487,18 +502,18 @@ def make_sweep(entrypoint: str, U: int, telemetry: bool = False,
     A sparse sweep's ``amortize=None`` resolves to False (the allocation
     branch every tick, no host read), as the reference resolves it for
     its vmapped programs; an explicit True reads its predicates once for
-    all U universes.  One callable per (entrypoint, U, mesh, exchange),
-    cached.  ``telemetry=`` waits for a later slice and raises."""
-    if telemetry:
-        raise NotImplementedError(
-            "telemetry= is not ported yet (the in-scan metrics come in a "
-            "later slice)"
-        )
-    return _make_sweep(entrypoint, U, mesh, exchange)
+    all U universes.  ``telemetry=True`` threads the in-scan metrics
+    (``consul_tpu_torch/obs``) through the batched scan: the outputs gain
+    one ``[U, steps, M]`` float32 trace as their last element (summed
+    over the shards on the composed plane) and every other output stays
+    the same.  One callable per (entrypoint, U, telemetry, mesh,
+    exchange), cached."""
+    return _make_sweep(entrypoint, U, bool(telemetry), mesh, exchange)
 
 
 @functools.lru_cache(maxsize=None)
-def _make_sweep(entrypoint: str, U: int, mesh, exchange: str):
+def _make_sweep(entrypoint: str, U: int, telemetry: bool, mesh,
+                exchange: str):
     if entrypoint not in SWEEP_ENTRYPOINTS:
         raise ValueError(
             f"unknown sweep entrypoint {entrypoint!r} "
@@ -542,9 +557,10 @@ def _make_sweep(entrypoint: str, U: int, mesh, exchange: str):
                 cfg, batched=True))
         ucfg = apply_knobs(cfg, knobs, tuple(values))
         if mesh is None:
-            return spec.call(stacked_state, keys, ucfg, steps, track)
-        return spec.sharded(stacked_state, keys, ucfg, steps, track, mesh,
-                            exchange)
+            return spec.call(stacked_state, keys, ucfg, steps, track,
+                             telemetry)
+        return spec.sharded(stacked_state, keys, ucfg, steps, track,
+                            telemetry, mesh, exchange)
 
     tag = "" if mesh is None else f"_D{mesh.n_shards}"
     sweep.__name__ = f"sweep_{entrypoint}_U{U}{tag}"

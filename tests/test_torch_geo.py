@@ -18,7 +18,7 @@ from the same state and key:
   D in {1, 2, 4} with both transports equals the unsharded scan on every
   tick with no outbox overflow; segments must divide over the shards;
 * ``GeoConfig`` rejects what the reference rejects, and ``run_geo``
-  rejects ``telemetry=`` and a transport without a mesh.
+  rejects a transport without a mesh.
 """
 
 import dataclasses
@@ -309,9 +309,11 @@ def test_run_geo_sharded_report():
 
 
 def test_entry_point_rejections():
+    """A transport without a mesh is refused; ``telemetry=`` is accepted
+    and adds the [steps, M] trace (tests/test_torch_obs.py holds it)."""
     _, cfg = _cfgs(True)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        run_geo(cfg, 2, telemetry=True, device="cpu")
+    rep = run_geo(cfg, 2, telemetry=True, device="cpu")
+    assert rep.metrics_trace.shape == (2, 6)
     with pytest.raises(ValueError, match="requires mesh"):
         run_geo(cfg, 2, exchange="ring", device="cpu")
 

@@ -32,7 +32,9 @@ MODULES = (
     "consul_tpu_torch.streamcast.report", "consul_tpu_torch.ops.knobs",
     "consul_tpu_torch.sweep", "consul_tpu_torch.sweep.universe",
     "consul_tpu_torch.sweep.frontier", "consul_tpu_torch.sweep.presets",
-    "consul_tpu_torch.sweep.optimize",
+    "consul_tpu_torch.sweep.optimize", "consul_tpu_torch.telemetry",
+    "consul_tpu_torch.obs", "consul_tpu_torch.obs.spec",
+    "consul_tpu_torch.obs.bridge", "consul_tpu_torch.cli",
     "chip_smoke",
 )
 

@@ -262,10 +262,13 @@ def test_schedule_rejects_out_of_range_node():
 
 
 def test_run_membership_rejects_later_slice_knobs():
+    """``sharded=`` (the multi-card placement) is refused; ``telemetry=`` is
+    accepted and adds the trace (tests/test_torch_obs.py holds it)."""
     cfg = MembershipConfig(n=8)
-    for kw in ({"telemetry": True}, {"sharded": True}):
-        with pytest.raises(NotImplementedError):
-            run_membership(cfg, 2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        run_membership(cfg, 2, device="cpu", sharded=True)
+    rep = run_membership(cfg, 2, device="cpu", telemetry=True)
+    assert rep.metrics_trace.shape == (2, 6)
     # mesh= runs the sharded twin; a transport without a mesh is refused.
     with pytest.raises(ValueError, match="requires mesh"):
         run_membership(cfg, 2, device="cpu", exchange="ring")

@@ -10,8 +10,8 @@ against the JAX package on the CPU.
   against the reference's ``probe1k(devices=8)``, both cut to 30 ticks
   (the full 300 ticks take minutes under ``pytest -n 6`` and run with
   ``-m slow``);
-* the knobs that are rejected: ``exchange`` without ``devices``, and
-  ``telemetry``.
+* the knobs: ``exchange`` without ``devices`` is rejected, and
+  ``telemetry`` reaches the study.
 """
 
 import numpy as np
@@ -124,12 +124,30 @@ def test_probe1k_over_8_shards_matches_jax():
     assert got["all_detected"] and got["shard_overflow"] == 0
 
 
+class _Reached(Exception):
+    pass
+
+
 @pytest.mark.parametrize("preset", ["dev3", "probe1k", "event100k",
                                     "stream100k"])
-def test_rejected_knobs(preset):
+def test_rejected_knobs(preset, monkeypatch):
+    """``telemetry=True`` reaches the preset's study (its ``run_*``, stubbed
+    here, gets the flag; tests/test_torch_cli.py runs dev3 in full);
+    ``exchange`` without ``devices`` is rejected."""
     fn = getattr(scenarios, preset)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        fn(telemetry=True, device="cpu")
+    run = {"dev3": "run_broadcast", "probe1k": "run_membership",
+           "event100k": "run_broadcast", "stream100k": "run_streamcast"}
+    seen = {}
+
+    def stub(*args, **kw):
+        seen.update(kw)
+        raise _Reached
+
+    with monkeypatch.context() as m:
+        m.setattr(scenarios, run[preset], stub)
+        with pytest.raises(_Reached):
+            fn(telemetry=True, device="cpu")
+    assert seen["telemetry"] is True and seen["device"] == "cpu"
     if preset == "probe1k":
         with pytest.raises(ValueError, match="requires mesh"):
             fn(exchange="ring", device="cpu")

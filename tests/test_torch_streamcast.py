@@ -532,8 +532,8 @@ def test_run_streamcast_rejects_what_waits():
     _, cfg = _cfgs(**SCAN_BASE)
     with pytest.raises(ValueError, match="requires mesh"):
         run_streamcast(cfg, 2, exchange="ring", device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        run_streamcast(cfg, 2, telemetry=True, device="cpu")
+    rep = run_streamcast(cfg, 2, telemetry=True, device="cpu")
+    assert rep.metrics_trace.shape == (2, 6)
     with pytest.raises(ValueError, match="policy"):
         run_streamcast(cfg, 2, policy="fastest", device="cpu")
     with pytest.raises(ValueError, match="requires mesh"):

@@ -21,8 +21,9 @@ are equal.)
   reference's on the same outputs;
 * batching is real: one tick at U = 8 runs as many ATen ops (views
   aside) as at U = 1;
-* what waits for a later slice (telemetry) raises, and the
-  composition's rejections use the reference's messages.
+* ``telemetry=`` is its own cached program (tests/test_torch_obs_sweep.py
+  holds its trace), and the composition's rejections use the reference's
+  messages.
 """
 
 import dataclasses
@@ -626,15 +627,18 @@ def test_geo_sweep_host_syncs_per_tick():
 
 
 def test_later_slices_raise():
-    """What still waits for a later slice raises: ``telemetry=``; the
-    composition's own rejections use the reference's messages (no sharded
-    twin for swim and lifeguard, a transport without a mesh)."""
+    """``telemetry=`` no longer waits: it is one more cached program per
+    axis point; the composition's own rejections use the reference's
+    messages (no sharded twin for swim and lifeguard, a transport without
+    a mesh)."""
     from consul_tpu_torch.parallel import mesh_for
 
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_sweep("swim", 2, telemetry=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_sweep("sparse", 2, telemetry=True, mesh=mesh_for(2, "cpu"))
+    assert make_sweep("swim", 2, telemetry=True) is make_sweep("swim", 2,
+                                                               True)
+    assert make_sweep("swim", 2, telemetry=True) is not make_sweep("swim", 2)
+    mesh = mesh_for(2, "cpu")
+    assert make_sweep("sparse", 2, True, mesh) is not make_sweep(
+        "sparse", 2, False, mesh)
     for entrypoint in ("swim", "lifeguard"):
         with pytest.raises(ValueError, match="no sharded twin"):
             make_sweep(entrypoint, 2, mesh=mesh_for(1, "cpu"))
@@ -644,8 +648,8 @@ def test_later_slices_raise():
                    steps=2, seeds=(0, 1))
     with pytest.raises(ValueError, match="no sharded twin"):
         run_sweep(uni, warmup=False, mesh=mesh_for(2, "cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        run_sweep(uni, warmup=False, telemetry=True, device="cpu")
+    rep = run_sweep(uni, warmup=False, telemetry=True, device="cpu")
+    assert rep.metrics_trace.shape == (2, 2, 7)
     with pytest.raises(ValueError, match="unknown sweep entrypoint"):
         make_sweep("multidc", 2)
     assert make_sweep("swim", 3) is make_sweep("swim", 3)
