@@ -145,6 +145,23 @@ Run from the root of the repository.  Phases, each fatal on failure:
      (dense 512) with the trace, card == CPU; and ``python -m
      consul_tpu_torch.cli sim event100k --devices 8 --exchange ring
      --metrics`` in a process of its own, printing run_scenario's JSON.
+ 13. the sim↔host bridge (``consul_tpu_torch.net``) and the multichip
+     datapoint: a scripted host joins a 10,000-member pool on the card
+     (the FAST profile, member 4242 crashing at tick 3, seed 0) by a
+     push/pull through ``sim://17`` whose answer holds all 10,000
+     snapshots, announces itself, fires one user event and acks every
+     probe while the pool runs in blocks of 5 ticks (at most 60) until a
+     DEAD message about ``sim-4242`` reaches it; then event coverage and
+     host awareness above 0.9 and no missed ping, with ticks/s, host
+     syncs a tick, device ms and launches a tick (``torch.profiler``, 2
+     more ticks) and the peak memory; the bridge at n=512 on the card and
+     on the CPU, driven by one scripted host for 40 ticks (SUSPECT, DEAD
+     and duplicate injections, a push/pull with a stale and an advancing
+     entry, two user events, an unanswered probe), every state field,
+     infection and delivered packet equal on every tick; and
+     ``parallel.shard.main`` at phase 4's sharded 1M broadcast (8 shards,
+     30 ticks, both transports): ``infected_final`` equal to phase 4's,
+     overflow 0, the exchange and merge walls per transport.
 
 The next-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -416,9 +433,10 @@ def report_line(tag: str, rep, card: str) -> None:
     log("study " + json.dumps(row))
 
 
-def phase_slice(dev, card: str) -> int:
+def phase_slice(dev, card: str) -> tuple:
     """The slice's studies; returns the ring kernel's launches in the
-    main-path run (8 shards, ring transport)."""
+    main-path run (8 shards, ring transport) and that run's final
+    ``infected``."""
     import torch
 
     from consul_tpu_torch import BroadcastConfig, mesh_for, run_broadcast
@@ -483,7 +501,7 @@ def phase_slice(dev, card: str) -> int:
               f"small study on CUDA != CPU ({kw})")
         check(on_card.infected.shape == (20,), "infected shape")
     log("small study: CUDA == CPU, unsharded and 4 shards (ring)")
-    return launches
+    return launches, int(ring.infected[-1])
 
 
 def swim_headline_cfg(delivery: str):
@@ -2557,9 +2575,11 @@ def _check_snapshot(tag: str, snap: dict, rep, entrypoint: str) -> None:
                   f"{tag}: counter {spec.name} != the trace's column")
 
 
-def _count_syncs(fn):
-    """(host synchronisations ``fn()`` made, its result): every call that
-    waits for the device warns under ``torch.cuda.set_sync_debug_mode``."""
+@contextlib.contextmanager
+def _sync_warnings():
+    """The warnings the block's host synchronisations raise: every call
+    that waits for the device warns under ``torch.cuda.set_sync_debug_mode``
+    (:func:`_n_syncs` counts them)."""
     import warnings
 
     import torch
@@ -2569,11 +2589,21 @@ def _count_syncs(fn):
     try:
         with warnings.catch_warnings(record=True) as seen:
             warnings.simplefilter("always")
-            out = fn()
+            yield seen
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in seen), out
+
+
+def _n_syncs(seen) -> int:
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _count_syncs(fn):
+    """(host synchronisations ``fn()`` made, its result)."""
+    with _sync_warnings() as seen:
+        out = fn()
+    return _n_syncs(seen), out
 
 
 def phase_telemetry(dev, card: str, off: dict) -> dict:
@@ -2822,6 +2852,296 @@ def probe1k_ring_shape(dev) -> tuple:
             (SHARDS, SHARDS, 4, budget))
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sim↔host bridge and the multichip datapoint
+# ---------------------------------------------------------------------------
+
+BRIDGE_N = 10_000             # tests/test_sim_transport.py's VERDICT bar
+BRIDGE_FAILED = 4242
+BRIDGE_BLOCK = 5              # ticks between the host's checks
+BRIDGE_MAX_TICKS = 60
+BRIDGE_PROFILE_TICKS = 2
+BRIDGE_PARITY_N = 512
+BRIDGE_PARITY_STEPS = 40
+BRIDGE_SCALE = 0.01           # interval_scale of the reference's tests
+HOST_ADDR = "sim-host://host0"
+
+
+def fast_profile():
+    """tests/test_sim_transport.py's FAST profile: probes every gossip
+    tick, the smallest suspicion multiplier."""
+    from consul_tpu_torch.protocol import GossipProfile
+
+    return GossipProfile(
+        name="fast", probe_interval_ms=200, probe_timeout_ms=200,
+        indirect_checks=3, suspicion_mult=2, suspicion_max_timeout_mult=2,
+        awareness_max_multiplier=8, gossip_interval_ms=200, gossip_nodes=3,
+        retransmit_mult=4, push_pull_interval_ms=30_000)
+
+
+def _host_self() -> dict:
+    return {"name": "host0", "addr": HOST_ADDR, "inc": 0, "status": 0,
+            "meta": b""}
+
+
+def _messages(payload: bytes) -> list:
+    """The (type, body) messages of one packet, compound or not."""
+    from consul_tpu_torch.net import wire
+
+    parts = (wire.split_compound(payload)
+             if payload[0] == wire.MessageType.COMPOUND else [payload])
+    return [wire.decode(p) for p in parts]
+
+
+async def _push_pull(transport, j: int, nodes: list) -> bytes:
+    from consul_tpu_torch.net import sim_addr, wire
+
+    stream = await transport.dial(sim_addr(j), 1.0)
+    await stream.send(wire.encode(wire.MessageType.PUSH_PULL, {
+        "join": True, "nodes": nodes, "user": b""}))
+    raw = await stream.recv(10.0)
+    await stream.close()
+    return raw
+
+
+async def _bridge_10k(dev, card: str) -> dict:
+    """The VERDICT bar on the card: a scripted host joins the 10k pool
+    through sim://17, announces itself, fires one user event and acks
+    every probe of it while the pool runs in blocks of 5 ticks until a
+    DEAD message about the crashed member reaches it."""
+    import asyncio
+
+    import torch
+
+    from consul_tpu_torch.net import SimBridge, SimPoolConfig, sim_addr, wire
+    from consul_tpu_torch.sim.breakdown import _kernel_times
+
+    torch.cuda.reset_peak_memory_stats()
+    t_setup = time.perf_counter()
+    bridge = SimBridge(SimPoolConfig(
+        n=BRIDGE_N, profile=fast_profile(), interval_scale=BRIDGE_SCALE,
+        fail_at=((BRIDGE_FAILED, 3),), realtime=False, seed=0), device=dev)
+    transport = bridge.transport(HOST_ADDR)
+    t, body = wire.decode(await _push_pull(transport, 17, [_host_self()]))
+    check(t == wire.MessageType.PUSH_PULL
+          and len(body["nodes"]) == BRIDGE_N,
+          f"10k join: push/pull answered {len(body['nodes'])} snapshots")
+    await transport.write_to(
+        wire.encode(wire.MessageType.ALIVE, _host_self()), sim_addr(17))
+    await transport.write_to(wire.encode(wire.MessageType.USER, {
+        "name": "deploy", "payload": b"big-pool-event", "ltime": 1}),
+        sim_addr(17))
+    setup_s = time.perf_counter() - t_setup
+
+    dead = []
+
+    async def listen():
+        # The host's packet loop: ack the pool's probes, note obituaries.
+        while True:
+            payload, src, _ = await transport.recv_packet()
+            for mt, msg in _messages(payload):
+                if mt == wire.MessageType.PING:
+                    await transport.write_to(wire.encode(
+                        wire.MessageType.ACK_RESP, {"seq": msg["seq"]}), src)
+                elif (mt == wire.MessageType.DEAD
+                      and msg.get("node") == f"sim-{BRIDGE_FAILED}"):
+                    dead.append(bridge.tick)
+
+    listener = asyncio.create_task(listen())
+    ticks = 0
+    t0 = time.perf_counter()
+    with _sync_warnings() as seen:
+        while ticks < BRIDGE_MAX_TICKS and not dead:
+            await bridge.run_ticks(BRIDGE_BLOCK)
+            ticks += BRIDGE_BLOCK
+    wall = time.perf_counter() - t0
+    if listener.done():
+        listener.result()  # the host's loop failed: raise what it raised
+    syncs = _n_syncs(seen)
+    coverage = bridge.event_coverage(b"big-pool-event")
+    awareness = bridge.host_awareness(transport)
+    check(bool(dead), f"10k: no DEAD about sim-{BRIDGE_FAILED} reached the "
+          f"host in {ticks} ticks")
+    check(coverage > 0.9, f"10k: event coverage {coverage}")
+    check(awareness > 0.9, f"10k: host awareness {awareness}")
+    check(transport.missed_pings == 0 and transport.ping_seq > 0,
+          f"10k: {transport.missed_pings} missed pings of "
+          f"{transport.ping_seq}")
+    # Device time a tick from a profiled block after the bar is met.
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        await bridge.run_ticks(BRIDGE_PROFILE_TICKS)
+        torch.cuda.synchronize()
+    kernels = _kernel_times(prof)
+    listener.cancel()
+    with contextlib.suppress(asyncio.CancelledError):
+        await listener
+    await transport.shutdown()
+    row = {
+        "run": "bridge_10k", "n": BRIDGE_N, "ticks": ticks,
+        "first_dead_tick": dead[0], "event_coverage": coverage,
+        "host_awareness": awareness, "pings": transport.ping_seq,
+        "missed_pings": transport.missed_pings,
+        "ticks_per_sec": ticks / wall, "wall_s": wall, "setup_s": setup_s,
+        "host_syncs_per_tick": syncs / ticks,
+        "device_ms_per_tick": sum(us for _, us in kernels.values())
+        / 1e3 / BRIDGE_PROFILE_TICKS,
+        "launches_per_tick": sum(c for c, _ in kernels.values())
+        / BRIDGE_PROFILE_TICKS,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "card": card,
+    }
+    log("bridge " + json.dumps(row))
+    return row
+
+
+def _bridge_script() -> dict:
+    """tick -> the scripted host's actions before it: (kind, j, arg)."""
+    from consul_tpu_torch.net import wire
+
+    def snap(j, inc=0, status=0):
+        return {"name": f"sim-{j}", "addr": f"sim://{j}", "inc": inc,
+                "status": status, "meta": b""}
+
+    enc = wire.encode
+    mt = wire.MessageType
+    return {
+        0: [("push_pull", 0, [_host_self(), snap(5), snap(9, 2, 1)])],
+        1: [("packet", 0, enc(mt.ALIVE, _host_self())),
+            ("packet", 3, enc(mt.USER, {"name": "deploy",
+                                        "payload": b"v2", "ltime": 1}))],
+        2: [("packet", 4, enc(mt.SUSPECT, {"inc": 0, "node": "sim-20",
+                                           "from": "host0"})),
+            ("packet", 4, enc(mt.DEAD, {"inc": 1, "node": "sim-21",
+                                        "from": "host0"})),
+            # Two injections into one cell (row 6, subject 30).
+            ("packet", 6, wire.make_compound([
+                enc(mt.SUSPECT, {"inc": 3, "node": "sim-30",
+                                 "from": "host0"}),
+                enc(mt.SUSPECT, {"inc": 1, "node": "sim-30",
+                                 "from": "host0"})]))],
+        5: [("packet", 7, enc(mt.USER, {"name": "deploy", "payload": b"v3",
+                                        "ltime": 2})),
+            ("packet", 8, enc(mt.PING, {"seq": 11}))],
+    }
+
+
+def _bridge_tick(bridge) -> tuple:
+    """What a tick leaves on the host: state planes, infections, host
+    counters (numpy)."""
+    state = tuple(x.cpu().numpy() for x in bridge.state)
+    infections = [(k, inf.infected.cpu().numpy(), inf.tx.cpu().numpy(),
+                   inf.done) for k, inf in bridge.events.items()]
+    infections += [(a, h.known.infected.cpu().numpy(),
+                    h.known.tx.cpu().numpy(), h.known.done)
+                   for a, h in bridge.hosts.items()]
+    hosts = [(h.ping_seq, dict(h.pending_pings), h.missed_pings, h.host_inc)
+             for h in bridge.hosts.values()]
+    return state, infections, hosts
+
+
+async def _bridge_parity(dev) -> int:
+    """The bridge at n=512 on the card and on the CPU, driven by one
+    scripted host for 40 ticks: every state field with its dtype, every
+    infection and every delivered packet equal on every tick.  Returns the
+    packets compared."""
+    from consul_tpu_torch.net import SimBridge, SimPoolConfig, sim_addr, wire
+
+    cfg = SimPoolConfig(
+        n=BRIDGE_PARITY_N, profile=fast_profile(),
+        interval_scale=BRIDGE_SCALE, fail_at=((3, 2), (40, 10)),
+        leave_at=((50, 4),), join_at=((60, 6),), realtime=False, seed=3)
+    pair = [SimBridge(cfg, device=dev), SimBridge(cfg, device="cpu")]
+    hosts = [b.transport(HOST_ADDR) for b in pair]
+    script = _bridge_script()
+    packets = 0
+    for tick in range(BRIDGE_PARITY_STEPS):
+        for kind, j, arg in script.get(tick, ()):
+            seen = []
+            for host in hosts:
+                if kind == "push_pull":
+                    seen.append(await _push_pull(host, j, arg))
+                else:
+                    await host.write_to(arg, sim_addr(j))
+            check(len(set(seen)) <= 1, f"bridge parity: tick {tick} "
+                  "push/pull answers differ")
+        for bridge in pair:
+            await bridge.step()
+        want, got = _bridge_tick(pair[1]), _bridge_tick(pair[0])
+        for f, a, b in zip(pair[1].state._fields, want[0], got[0]):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"bridge parity: tick {tick} state.{f} CUDA != CPU")
+        check(len(want[1]) == len(got[1]), "bridge parity: infections")
+        for a, b in zip(want[1], got[1]):
+            check(a[0] == b[0] and np.array_equal(a[1], b[1])
+                  and np.array_equal(a[2], b[2]) and a[3] == b[3],
+                  f"bridge parity: tick {tick} infection {a[0]!r}")
+        check(want[2] == got[2], f"bridge parity: tick {tick} host counters")
+        drained = []
+        for host in hosts:
+            out = []
+            while not host.packets.empty():
+                payload, src, _ = host.packets.get_nowait()
+                out.append((payload, src))
+            drained.append(out)
+        check(drained[0] == drained[1],
+              f"bridge parity: tick {tick} delivered packets differ")
+        packets += len(drained[0])
+        # Ack every probe but the first, so one expires.
+        for payload, src in drained[0]:
+            for mt, msg in _messages(payload):
+                if mt == wire.MessageType.PING and msg["seq"] != -1:
+                    for host in hosts:
+                        await host.write_to(wire.encode(
+                            wire.MessageType.ACK_RESP, {"seq": msg["seq"]}),
+                            src)
+    check(packets > 0 and hosts[0].ping_seq > 0,
+          "bridge parity: the pool never gossiped to or probed the host")
+    return packets
+
+
+def phase_bridge(dev, card: str, broadcast_final: int) -> int:
+    """Phase 13: the 10k VERDICT bar, the bridge CUDA == CPU at n=512 and
+    the multichip datapoint (``parallel.shard.main`` at phase 4's sharded
+    1M broadcast).  Returns the datapoint's ring launches."""
+    import asyncio
+    import io
+
+    from consul_tpu_torch.ops import ring_exchange
+    from consul_tpu_torch.parallel import shard
+
+    t_phase = time.perf_counter()
+    asyncio.run(_bridge_10k(dev, card))
+    log(f"bridge n={BRIDGE_N} in {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    packets = asyncio.run(_bridge_parity(dev))
+    log(f"bridge n={BRIDGE_PARITY_N}: CUDA == CPU on "
+        f"{BRIDGE_PARITY_STEPS} ticks (state, infections, {packets} "
+        f"packets byte-equal) in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    argv = ["--devices", str(SHARDS), "--n", str(N_1M), "--steps",
+            str(EDGE_STEPS), "--exchange", "both"]
+    out = io.StringIO()
+    ring_exchange.launches = 0
+    with contextlib.redirect_stdout(out):
+        check(shard.main(argv) == 0, "datapoint main failed")
+    launches = ring_exchange.launches
+    (line,) = out.getvalue().strip().splitlines()
+    point = json.loads(line)
+    rows = point["exchange_backends"]
+    for ex, row in rows.items():
+        check(row["infected_final"] == broadcast_final,
+              f"datapoint {ex}: infected_final {row['infected_final']} != "
+              f"phase 4's {broadcast_final}")
+        check(row["overflow"] == 0, f"datapoint {ex}: overflow")
+    check(set(rows) == {"alltoall", "ring"}, "datapoint backends")
+    log("datapoint " + json.dumps(dict(point, card=card)))
+    log(f"datapoint in {time.perf_counter() - t0:.1f} s")
+    log(f"bridge phase passed in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2836,7 +3156,7 @@ def main() -> int:
     card = phase_card()
     ring_err = phase_ring_kernel(dev)
     phase_threefry(dev)
-    broadcast_launches = phase_slice(dev, card)
+    broadcast_launches, broadcast_final = phase_slice(dev, card)
     phase_swim(dev, card)
     phase_lifeguard(dev, card)
     membership_reports = phase_membership(dev, card)
@@ -2872,6 +3192,7 @@ def main() -> int:
     preset_off["probe1k"] = membership_reports["probe1k"][0]
     telemetry_launches = phase_telemetry(dev, card, preset_off)
     (probe1k_row,) = phase_ring_paths(dev, [probe1k_ring_shape(dev)])
+    datapoint_launches = phase_bridge(dev, card, broadcast_final)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     # Every ring path with the launches of the study that drives it; the
@@ -2895,7 +3216,12 @@ def main() -> int:
         if "telemetry" not in row["path"]:
             row["path"] += ", telemetry"
         telemetry_rows.append(row)
-    paths = paths + stream_paths + [composed_row] + telemetry_rows
+    # Phase 13's datapoint runs the broadcast twin at phase 4's shape.
+    datapoint_row = dict(
+        paths[0], launches=datapoint_launches,
+        path="parallel.shard.main (the multichip datapoint), ring")
+    paths = (paths + stream_paths + [composed_row] + telemetry_rows
+             + [datapoint_row])
     head = max(paths, key=lambda row: np.prod(row["shape"]))
     kernel = {
         "name": "ring_exchange", "route": "cuda",

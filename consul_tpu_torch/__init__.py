@@ -27,6 +27,9 @@ Layout (mirrors the JAX package):
     generators, reports, and the BASELINE presets ``dev3``, ``probe1k``,
     ``event100k``, ``stream100k``, ``suspect1m``, ``degraded1m``,
     ``multidc1m`` and ``geo100k`` (``sim.scenarios``).
+  - ``net``      -- the sim↔host bridge: a host agent joins a population
+    simulated on the device through ``SimTransport`` (``net/wire.py``
+    carries the wire grammar and its msgpack codec).
   - ``convert``  -- numpy bridges for state and keys.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
@@ -53,6 +56,7 @@ from consul_tpu_torch.sim import (
 )
 from consul_tpu_torch.geo import GeoConfig  # noqa: E402 (needs sim first)
 from consul_tpu_torch.streamcast import StreamcastConfig  # noqa: E402
+from consul_tpu_torch import net  # noqa: E402 (the bridge over models)
 
 __all__ = [
     "BroadcastConfig",
@@ -65,6 +69,7 @@ __all__ = [
     "SwimConfig",
     "make_mesh",
     "mesh_for",
+    "net",
     "run_broadcast",
     "run_geo",
     "run_lifeguard",

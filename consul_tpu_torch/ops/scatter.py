@@ -32,7 +32,9 @@ def deliver_or(dest: torch.Tensor, targets: torch.Tensor,
     n = dest.shape[-1]
     hits = torch.zeros((*dest.shape[:-1], n + 1), dtype=torch.bool,
                        device=dest.device)
-    hits.view(-1)[_masked_targets(dest, targets, mask)] = True
+    # index_fill_ takes True as a kernel argument; assigning it through
+    # an index tensor would copy it to the device and wait for the device.
+    hits.view(-1).index_fill_(0, _masked_targets(dest, targets, mask), True)
     return dest | hits[..., :n]
 
 

@@ -36,13 +36,16 @@ for every universe and payload plane, and overflow per universe ``[U]``.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
 
+from consul_tpu_torch.device import resolve_device
 from consul_tpu_torch.models.broadcast import (
     BroadcastConfig,
     BroadcastState,
+    broadcast_init,
     spend_budget,
 )
 from consul_tpu_torch.models.membership import (
@@ -82,6 +85,7 @@ from consul_tpu_torch.models.membership_sparse import (
     sparse_spend,
 )
 from consul_tpu_torch.ops import (
+    PRNGKey,
     arrival_rate,
     bernoulli_mask_owned,
     compact_to_budget,
@@ -89,13 +93,14 @@ from consul_tpu_torch.ops import (
     fold_in,
     poissonized_arrivals_owned,
     ring_exchange_planes,
+    sample_peers,
     sample_peers_owned,
     split,
 )
 from consul_tpu_torch.obs.spec import open_trace, with_trace
 from consul_tpu_torch.ops.knobs import keep_prob
 from consul_tpu_torch.ops.sortmerge import _segmented_sum
-from consul_tpu_torch.parallel.mesh import Mesh, block_size
+from consul_tpu_torch.parallel.mesh import Mesh, block_size, mesh_for
 
 OUTBOX_SAFETY = 2   # c: budget multiple of the per-destination mean
 OUTBOX_FLOOR = 64   # never fewer slots than this (small-n studies)
@@ -908,3 +913,143 @@ def sharded_streamcast_scan(state, key: torch.Tensor, cfg, steps: int,
         cursor=st.cursor.reshape(*batch, n, w_slots),
     )
     return StreamcastState(*final), with_trace(outs, trace)
+
+
+# ---------------------------------------------------------------------------
+# Standalone multichip datapoint: python -m consul_tpu_torch.parallel.shard
+# ---------------------------------------------------------------------------
+
+
+def _wall_s(fn, iters: int, dev: torch.device) -> float:
+    """Seconds one ``fn()`` takes: the mean of ``iters`` back-to-back calls
+    after one warm-up call, between CUDA events on a GPU (host time
+    between calls counts where the device waits for it), by the host
+    clock on the CPU."""
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3 / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters
+
+
+def exchange_phase_walls(cfg: BroadcastConfig, mesh: Mesh, backend: str,
+                         iters: int = 20) -> dict:
+    """Per-round wall split of one broadcast-shaped gossip round: the
+    pack-and-exchange step and the local delivery scatter, each timed
+    alone at the round's exact shapes.  ``exchange_wall_s`` is what a
+    round pays when the transport does not hide behind the merge,
+    ``merge_wall_s`` the local work it could hide behind.  Unrounded
+    seconds (the reference rounds to microseconds, which a card's
+    exchange is a few of)."""
+    n, fanout = cfg.n, cfg.fanout
+    d_shards = mesh.n_shards
+    blk = block_size(n, mesh)
+    budget = outbox_budget(blk * fanout, d_shards)
+    dev = resolve_device(mesh.device)
+    me = torch.arange(d_shards, dtype=torch.int64, device=dev)[:, None]
+    recv = sample_peers(PRNGKey(7, dev), n, fanout).view(
+        d_shards, blk * fanout)
+    ok = torch.ones_like(recv, dtype=torch.bool)
+    knows = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def exchange():
+        dest = recv.to(torch.int64) // blk
+        (ob_recv,), dropped = pack_outbox(
+            dest, ok & (dest != me), (recv,), d_shards, budget)
+        (ib_recv,) = exchange_outbox((ob_recv,), backend=backend)
+        return torch.sum(ib_recv, dim=-1, dtype=torch.int32) + dropped
+
+    def merge():
+        # Shard me's local index recv - me*blk is global index recv of
+        # the flattened [D*blk] plane, as in sharded_broadcast_scan.
+        return deliver_or(knows, recv, ok & (recv.to(torch.int64) // blk
+                                             == me))
+
+    return {
+        "exchange_wall_s": _wall_s(exchange, iters, dev),
+        "merge_wall_s": _wall_s(merge, iters, dev),
+    }
+
+
+def main(argv=None) -> int:
+    """Print one multichip datapoint as a JSON line: the sharded broadcast
+    study (fanout 4, edges) over ``--devices`` logical shards at ``--n``
+    aggregate nodes, per outbox transport, with its exchange and merge
+    walls.  CUDA unless ``--device`` names another device."""
+    import argparse
+    import json
+
+    parser = argparse.ArgumentParser(prog="consul_tpu_torch.parallel.shard")
+    parser.add_argument("--devices", type=int, default=8,
+                        help="logical shards of the node axis")
+    parser.add_argument("--n", type=int, default=4096,
+                        help="aggregate nodes across the shards")
+    parser.add_argument("--steps", type=int, default=30)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--exchange", default="both",
+                        choices=("alltoall", "ring", "both"),
+                        help="outbox transport(s) to measure")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the current GPU)")
+    args = parser.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    mesh = mesh_for(args.devices, dev)
+    cfg = BroadcastConfig(n=args.n, fanout=4, delivery="edges")
+    key = PRNGKey(args.seed, dev)
+    backends = (
+        ("alltoall", "ring") if args.exchange == "both"
+        else (args.exchange,)
+    )
+    per_backend: dict = {}
+    for ex in backends:
+        # A warm-up pass (allocator, kernel build), then the timed one.
+        _, (infected, ov) = sharded_broadcast_scan(
+            broadcast_init(cfg, device=dev), key, cfg, args.steps, mesh, ex)
+        infected.cpu()
+        t0 = time.perf_counter()
+        _, (infected, ov) = sharded_broadcast_scan(
+            broadcast_init(cfg, device=dev), key, cfg, args.steps, mesh, ex)
+        infected = infected.cpu().numpy()
+        wall = time.perf_counter() - t0
+        per_backend[ex] = {
+            "rounds_per_sec": (
+                round(args.steps / wall, 2) if wall > 0 else None
+            ),
+            "infected_final": int(infected[-1]),
+            "overflow": int(ov),
+            **exchange_phase_walls(cfg, mesh, ex),
+        }
+    head = per_backend[backends[0]]
+    print(json.dumps({
+        "devices": mesh.n_shards,
+        "nodes_aggregate": cfg.n,
+        "nodes_per_device": cfg.n // mesh.n_shards,
+        "rounds": args.steps,
+        "rounds_per_sec": head["rounds_per_sec"],
+        "infected_final": head["infected_final"],
+        "overflow": head["overflow"],
+        "exchange_backend": backends[0],
+        "exchange_backends": per_backend,
+        # D logical shards on one device: nothing to force.
+        "host_devices_forced": False,
+        "card": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                 else str(dev)),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

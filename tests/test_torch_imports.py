@@ -11,7 +11,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "consul_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ]
-FORBIDDEN = ("jax", "jaxlib", "consul_tpu")
+FORBIDDEN = ("jax", "jaxlib", "consul_tpu", "msgpack")
 
 MODULES = (
     "consul_tpu_torch", "consul_tpu_torch.convert", "consul_tpu_torch.ops",
@@ -35,6 +35,8 @@ MODULES = (
     "consul_tpu_torch.sweep.optimize", "consul_tpu_torch.telemetry",
     "consul_tpu_torch.obs", "consul_tpu_torch.obs.spec",
     "consul_tpu_torch.obs.bridge", "consul_tpu_torch.cli",
+    "consul_tpu_torch.net", "consul_tpu_torch.net.wire",
+    "consul_tpu_torch.net.transport", "consul_tpu_torch.net.sim_transport",
     "chip_smoke",
 )
 
