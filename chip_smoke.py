@@ -162,6 +162,29 @@ Run from the root of the repository.  Phases, each fatal on failure:
      ``parallel.shard.main`` at phase 4's sharded 1M broadcast (8 shards,
      30 ticks, both transports): ``infected_final`` equal to phase 4's,
      overflow 0, the exchange and merge walls per transport.
+ 14. the program registry (``consul_tpu_torch.sim.registry``) and the
+     profile harness (``obs/profile.py``), after the earlier phases'
+     tensors are freed (under 1 GiB left allocated): the registry's 94
+     small and 14 big programs, every big program's ``state_bytes()``
+     printed before anything runs; ``profile_registry(big,
+     execute=True)``: each of the 13 executable programs (1M-node
+     broadcast, SWIM 450 ticks, Lifeguard 160, streamcast 150, geo 60,
+     sparse; dense 16k; the sharded twins at 1M nodes a shard over 2
+     logical shards; the sparse 100k sweep at U = 1 and 8) run from its
+     own initial state and ``PRNGKey(0)``: a first call of its first 10
+     ticks under ``torch.profiler`` (launches and device ms a tick, the
+     launches held within a band of the counts the whole studies gave)
+     and a timed call of the whole study (execute wall, peak memory, the
+     arguments unchanged), each held under the memory gate (90% of the
+     card); ``sparse@10m`` sized only, allocating nothing; the 22
+     ``EQUIV_PAIRS`` rungs walked on the card, bit for bit, the five
+     ``D2/ring`` programs launching the ring kernel once a tick (counted,
+     and seen by the profiler) at their ``[2, 2, C, budget]`` shapes,
+     which the ring kernel is then held and timed at as in phase 8; and
+     ``python -m consul_tpu_torch.cli profile --which small --entry
+     broadcast@small --execute --format json --perfetto DIR`` in a process
+     of its own beside the ladder: exit 0, every row executed, a Chrome
+     trace holding CUDA kernel events.
 
 The next-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -3142,6 +3165,240 @@ def phase_bridge(dev, card: str, broadcast_final: int) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the program registry, the ladder and the profile harness
+# ---------------------------------------------------------------------------
+
+REGISTRY_COUNTS = {"small": 94, "big": 14}
+PHASE14_AIM_S = 240.0        # the phase's aimed share of the 1200 s
+LEFTOVER_LIMIT = 1 << 30     # what earlier phases may still hold
+# Ticks of each big program's profiled first call (the whole study when it
+# is shorter); the timed call runs the whole study.
+PROFILE_WINDOW = 10
+# Kernel launches a tick of each big program over its whole study, as an
+# NVIDIA H100 80GB HBM3 at 700 W counted them (PERF.md section 6).  A
+# window's count must lie within LAUNCH_BAND of these: the profiler has
+# been seen to lose events, and a count that lost them is no measurement.
+LAUNCHES_PER_TICK = {
+    "broadcast@1m": 732.5, "membership@16k": 5357.2, "sparse@1m": 4984.3,
+    "swim@1m": 3250.5, "lifeguard@1m": 4042.8, "streamcast@1m": 1964.5,
+    "geo@1m": 3513.7, "sharded_broadcast@1m_per_chip/D2": 1530.5,
+    "sharded_membership@1m_per_chip/D2": 5509.5,
+    "sharded_sparse@1m_per_chip/D2": 5540.0,
+    "sharded_streamcast@1m_per_chip/D2": 2980.8,
+    "sweep_sparse@100k/U1": 5468.7, "sweep_sparse@100k/U8": 5469.7,
+}
+LAUNCH_BAND = (0.75, 1.33)
+
+
+def free_card(dev) -> None:
+    """Return what earlier phases left in the allocator's cache, and check
+    that under 1 GiB is still allocated before the 1M-node programs run."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    log(f"registry phase starts with {held} bytes allocated on the card")
+    check(held < LEFTOVER_LIMIT,
+          f"earlier phases hold {held} bytes on the card")
+
+
+@contextlib.contextmanager
+def ring_shapes_seen():
+    """Record ``[D, D, C, budget]`` of every ring exchange the sharded plane
+    makes inside the block (the shapes the registry's programs give the
+    kernel)."""
+    from consul_tpu_torch.parallel import shard
+
+    seen = []
+    real = shard.ring_exchange_planes
+
+    def spy(planes):
+        *_, d, _, budget = planes[0].shape
+        seen.append((d, d, len(planes), budget))
+        return real(planes)
+
+    shard.ring_exchange_planes = spy
+    try:
+        yield seen
+    finally:
+        shard.ring_exchange_planes = real
+
+
+def _trace_kernels(path: str) -> int:
+    """CUDA kernel events in a ``torch.profiler`` Chrome trace (counted in
+    its text: the trace of a 4096-node study is about 100 MB)."""
+    with open(path) as f:
+        text = f.read()
+    check('"traceEvents"' in text, f"{path} is not a Chrome trace")
+    return text.count('"cat": "kernel"')
+
+
+def walk_ladder(small: dict, dev) -> list:
+    """The 22 ladder rungs on the card, one at a time; the ring rungs under
+    the profiler, with the shapes their programs give the kernel.  Returns
+    ``(path, [D, D, C, budget], launches)`` of each ``D2/ring`` program."""
+    from consul_tpu_torch.ops import ring_exchange
+    from consul_tpu_torch.sim.registry import EQUIV_PAIRS, walk_equiv_pairs
+
+    import torch
+
+    from consul_tpu_torch.obs.profile import kernel_events
+
+    def ring_kernels_profiled(run) -> int:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return sum(1 for name, _ in kernel_events(prof)
+                   if "ring" in name.lower())
+
+    t_ladder = time.perf_counter()
+    ring_rows = []
+    for pair in EQUIV_PAIRS:
+        if not pair.a.endswith("/D2/ring"):
+            (walked,) = walk_equiv_pairs(small, dev, (pair,))
+            log(f"ladder {pair.a} == {pair.b} ({pair.relation}) in "
+                f"{walked['seconds']:.2f} s")
+            continue
+        ring_exchange.launches = 0
+        with ring_shapes_seen() as seen:
+            profiled = ring_kernels_profiled(
+                lambda: walk_equiv_pairs(small, dev, (pair,)))
+        counted = ring_exchange.launches
+        check(counted >= 1 and profiled == counted,
+              f"{pair.a}: ring launches counted {counted}, profiled "
+              f"{profiled}")
+        check(len(set(seen)) == 1 and len(seen) == counted,
+              f"{pair.a}: ring shapes {seen}")
+        ring_rows.append((f"registry {pair.a}", seen[0], counted))
+        log(f"ladder {pair.a} == {pair.b}: ring launches {counted} "
+            f"(profiled {profiled}) at {list(seen[0])}")
+    log(f"ladder: {len(EQUIV_PAIRS)} rungs hold on the card, bit for bit, in "
+        f"{time.perf_counter() - t_ladder:.1f} s")
+    return ring_rows
+
+
+def phase_registry(dev, card: str) -> list:
+    """Phase 14: the big registry profiled on the card from each program's
+    own initial state, under the memory gate; the 22 ladder rungs on CUDA,
+    with the ring launches of the five ``D2/ring`` programs; ``cli profile``
+    in a process of its own.  Returns the ring kernel's rows at the
+    registry's ``[2, 2, C, budget]`` shapes."""
+    import tempfile
+
+    import torch
+
+    from consul_tpu_torch.obs.profile import (
+        memory_budget,
+        memory_gate,
+        profile_registry,
+    )
+    from consul_tpu_torch.sim.registry import EQUIV_PAIRS, jaxlint_registry
+
+    t_phase = time.perf_counter()
+    free_card(dev)
+    small = jaxlint_registry(include=("small",))
+    big = jaxlint_registry(include=("big",))
+    log(f"registry: {len(small)} small, {len(big)} big programs, "
+        f"{len(EQUIV_PAIRS)} ladder rungs")
+    check({"small": len(small), "big": len(big)} == REGISTRY_COUNTS,
+          "registry counts != the reference's 94 small, 14 big")
+    predicted = {}
+    for name, prog in big.items():
+        predicted[name] = prog.state_bytes()
+        log(f"registry {name}: state_bytes {predicted[name]} "
+            f"({predicted[name] / 2 ** 30:.3f} GiB) before executing")
+
+    # The abstract-only entry is sized and never run: nothing allocated.
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    (row,) = profile_registry({"sparse@10m": big["sparse@10m"]},
+                              execute=True, device=dev)
+    check(torch.cuda.max_memory_allocated(dev) == before,
+          "sparse@10m allocated on the card")
+    check(row.execute_skipped == "abstract-only registry entry "
+          "(never compiled/executed)" and row.execute_s is None,
+          f"sparse@10m: {row}")
+
+    budget = memory_budget(dev)
+    t_big = time.perf_counter()
+    profiles = profile_registry(big, execute=True, device=dev,
+                                window=PROFILE_WINDOW)
+    for p in profiles:
+        if big[p.name].abstract_only:
+            check(p.execute_s is None and p.peak_bytes is None,
+                  f"{p.name} executed")
+            log("registry " + json.dumps(
+                {"program": p.name, "skipped": p.execute_skipped,
+                 "argument_bytes": p.argument_bytes, "card": card}))
+            continue
+        check(p.execute_skipped is None and p.execute_s is not None,
+              f"{p.name}: not executed ({p.execute_skipped})")
+        check(p.launches > 0 and p.device_ms > 0,
+              f"{p.name}: the profiler saw no device work")
+        per_tick = p.launches / p.profiled_steps
+        want = LAUNCHES_PER_TICK[p.name]
+        check(LAUNCH_BAND[0] * want <= per_tick <= LAUNCH_BAND[1] * want,
+              f"{p.name}: {per_tick:.1f} launches a tick over "
+              f"{p.profiled_steps} ticks, outside {LAUNCH_BAND} x {want}")
+        check(p.argument_bytes == predicted[p.name],
+              f"{p.name}: arguments != state_bytes()")
+        memory_gate(p, budget)
+        log("registry " + json.dumps({
+            "program": p.name, "trace_s": p.trace_s,
+            "compile_s": p.compile_s, "execute_s": p.execute_s,
+            "profiled_steps": p.profiled_steps, "steps": big[p.name].steps,
+            "launches": p.launches, "device_ms": p.device_ms,
+            "launches_per_tick": per_tick,
+            "device_ms_per_tick": p.device_ms / p.profiled_steps,
+            "peak_gib": p.peak_bytes / 2 ** 30,
+            "argument_bytes": p.argument_bytes,
+            "output_bytes": p.output_bytes, "temp_bytes": p.temp_bytes,
+            "gate_gib": budget / 2 ** 30, "device": p.device,
+            "card": card}))
+    log(f"registry big set profiled in {time.perf_counter() - t_big:.1f} s")
+
+    # cli profile in a process of its own, with a Chrome trace, beside the
+    # ladder (whose walls are not measurements).
+    t_cli = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "consul_tpu_torch.cli", "profile",
+             "--which", "small", "--entry", "broadcast@small", "--execute",
+             "--format", "json", "--perfetto", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            ring_rows = walk_ladder(small, dev)
+            out, err = cli.communicate(timeout=600)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+        check(cli.returncode == 0,
+              f"cli profile exited {cli.returncode}: {err[-2000:]}")
+        cli_rows = json.loads(out)["programs"]
+        check(bool(cli_rows) and all(
+            r["execute_s"] is not None and r["launches"] > 0
+            for r in cli_rows), f"cli profile rows: {cli_rows}")
+        kernels = _trace_kernels(f"{tmp}/trace.json")
+        check(kernels > 0, "cli profile's trace holds no CUDA kernel")
+    log(f"cli profile: {len(cli_rows)} programs executed, the Chrome trace "
+        f"holds {kernels} kernel events, in "
+        f"{time.perf_counter() - t_cli:.1f} s")
+
+    rows = phase_ring_paths(dev, [(path, shape)
+                                  for path, shape, _ in ring_rows])
+    for row, (_, _, counted) in zip(rows, ring_rows):
+        row["launches"] = counted
+    wall = time.perf_counter() - t_phase
+    log(f"registry phase passed in {wall:.1f} s (aim {PHASE14_AIM_S:.0f})")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3193,6 +3450,9 @@ def main() -> int:
     telemetry_launches = phase_telemetry(dev, card, preset_off)
     (probe1k_row,) = phase_ring_paths(dev, [probe1k_ring_shape(dev)])
     datapoint_launches = phase_bridge(dev, card, broadcast_final)
+    # Phase 14 reads none of the earlier phases' reports.
+    del membership_reports, sparse_twin, preset_off
+    registry_rows = phase_registry(dev, card)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)
     # Every ring path with the launches of the study that drives it; the
@@ -3221,7 +3481,7 @@ def main() -> int:
         paths[0], launches=datapoint_launches,
         path="parallel.shard.main (the multichip datapoint), ring")
     paths = (paths + stream_paths + [composed_row] + telemetry_rows
-             + [datapoint_row])
+             + [datapoint_row] + registry_rows)
     head = max(paths, key=lambda row: np.prod(row["shape"]))
     kernel = {
         "name": "ring_exchange", "route": "cuda",

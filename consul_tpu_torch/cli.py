@@ -1,6 +1,7 @@
 """The simulator's command line: ``python -m consul_tpu_torch.cli``.
 
-The port of the ``sim`` and ``sweep`` commands of ``consul_tpu/cli.py``,
+The port of the ``sim``, ``sweep`` and ``profile`` commands of
+``consul_tpu/cli.py``,
 with their flags, their checks before anything runs and their JSON on
 standard output:
 
@@ -8,6 +9,7 @@ standard output:
     python -m consul_tpu_torch.cli sim event100k --devices 8 \
         --exchange ring --metrics
     python -m consul_tpu_torch.cli sweep seeds4k --universes 64
+    python -m consul_tpu_torch.cli profile --which big --execute
 
 ``--devices D`` lays the study over D logical shards of one card
 (``parallel.mesh_for``).  ``--device`` (the one flag the reference lacks)
@@ -133,6 +135,34 @@ def build_parser() -> argparse.ArgumentParser:
                          "batched program)")
     sp.add_argument("--max-generations", type=int, default=12,
                     dest="max_generations")
+    _add_device(sp)
+
+    sp = sub.add_parser(
+        "profile",
+        help="profile harness over the program registry "
+             "(consul_tpu_torch/obs/profile.py): trace, first-call and "
+             "execute walls, launches, device ms and peak memory per "
+             "entrypoint",
+    )
+    sp.set_defaults(fn=cmd_profile)
+    sp.add_argument("--set", "--which", default="small", dest="which",
+                    choices=("small", "big", "all"),
+                    help="registry tier to profile (default small; "
+                         "big = the 1M-node bench shapes)")
+    sp.add_argument("--entry", default="",
+                    help="profile only registry entries whose name "
+                         "contains this substring")
+    sp.add_argument("--execute", action="store_true",
+                    help="also execute each program from its initial "
+                         "state, a first call and a timed one (without it "
+                         "nothing is allocated: the arguments are sized "
+                         "on the meta device)")
+    sp.add_argument("--perfetto", default="", metavar="DIR",
+                    help="additionally run one small telemetry=on study "
+                         "under torch.profiler and write its Chrome trace "
+                         "(DIR/trace.json, opens in Perfetto)")
+    sp.add_argument("--format", choices=("text", "json"),
+                    default="text")
     _add_device(sp)
     return p
 
@@ -308,6 +338,70 @@ def cmd_sweep(args) -> int:
         return 1
     print(json.dumps(out, indent=2, default=str))
     return 0
+
+
+def cmd_profile(args) -> int:
+    """The profile harness (``obs/profile.py``) over the program registry
+    (``sim/registry.py``): each program's trace wall and argument bytes,
+    and with ``--execute`` its first-call and execute walls, launches,
+    device ms and peak memory."""
+    from consul_tpu_torch.obs.profile import (
+        profile_registry,
+        run_with_profiler,
+    )
+    from consul_tpu_torch.sim.registry import jaxlint_registry
+
+    include = ("small", "big") if args.which == "all" else (args.which,)
+    programs = jaxlint_registry(include=include)
+    if args.entry:
+        programs = {k: v for k, v in programs.items() if args.entry in k}
+        if not programs:
+            print(f"Error: no registry entry matches {args.entry!r}",
+                  file=sys.stderr)
+            return 1
+    profiles = profile_registry(programs, execute=args.execute,
+                                device=args.device)
+    if args.perfetto:
+        # One small telemetry=on study under the profiler: the trace
+        # capture path (Perfetto UI).
+        from consul_tpu_torch.models import BroadcastConfig
+        from consul_tpu_torch.sim.engine import run_broadcast
+
+        run_with_profiler(
+            args.perfetto,
+            lambda: run_broadcast(
+                BroadcastConfig(n=4096, fanout=4, delivery="edges"),
+                steps=30, warmup=True, telemetry=True, device=args.device,
+            ),
+        )
+        print(f"perfetto trace written under {args.perfetto}",
+              file=sys.stderr)
+    if args.format == "json":
+        print(json.dumps({"programs": [p.to_json() for p in profiles]}))
+        return 0
+    rows = [("PROGRAM", "FLOPS", "BYTES", "TRACE_S", "COMPILE_S",
+             "EXECUTE_S", "LAUNCHES", "DEVICE_MS", "PEAK_BYTES")]
+
+    def opt(v, fmt):
+        return "-" if v is None else format(v, fmt)
+
+    for p in profiles:
+        rows.append((
+            p.name, opt(p.flops, ".3g"), opt(p.bytes_accessed, ".3g"),
+            f"{p.trace_s:.2f}", opt(p.compile_s, ".2f"),
+            (f"{p.execute_s:.3f}" if p.execute_s is not None
+             else (p.execute_skipped or "-")),
+            opt(p.launches, "d"), opt(p.device_ms, ".3f"),
+            opt(p.peak_bytes, "d"),
+        ))
+    _print_table(rows)
+    return 0
+
+
+def _print_table(rows: list[tuple]) -> None:
+    widths = [max(len(str(r[i])) for r in rows) for i in range(len(rows[0]))]
+    for row in rows:
+        print("  ".join(str(v).ljust(w) for v, w in zip(row, widths)).rstrip())
 
 
 if __name__ == "__main__":

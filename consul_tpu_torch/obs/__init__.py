@@ -6,12 +6,18 @@
             [steps, M] trace (``[*B, steps, M]`` under a sweep).
 ``bridge``  replays a trace into ``telemetry.Metrics`` (the
             /v1/agent/metrics JSON shape) under the reference names.
-
-The reference's ``obs/profile.py`` (XLA's cost analysis over its
-program registry) has no counterpart here yet.
+``profile`` executes registry programs (``sim/registry.py``) from their
+            initial states and reads the trace, first-call and execute
+            walls, launches, device ms and peak memory.
 """
 
 from consul_tpu_torch.obs.bridge import bridge_report, bridge_trace
+from consul_tpu_torch.obs.profile import (
+    ProgramProfile,
+    profile_program,
+    profile_registry,
+    run_with_profiler,
+)
 from consul_tpu_torch.obs.spec import (
     MetricSpec,
     emit_local,
@@ -36,12 +42,16 @@ def __getattr__(name: str):
 __all__ = [
     "METRIC_SPECS",
     "MetricSpec",
+    "ProgramProfile",
     "bridge_report",
     "bridge_trace",
     "emit_local",
     "emit_metrics",
     "metric_count",
     "metric_names",
+    "profile_program",
+    "profile_registry",
     "reduce_over_shards",
+    "run_with_profiler",
     "sum_mask",
 ]

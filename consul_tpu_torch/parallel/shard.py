@@ -106,6 +106,24 @@ OUTBOX_SAFETY = 2   # c: budget multiple of the per-destination mean
 OUTBOX_FLOOR = 64   # never fewer slots than this (small-n studies)
 EXCHANGE_BACKENDS = ("alltoall", "ring")
 
+# Each sharded twin and the unsharded family it twins, under the
+# reference's names (the registry's ladder rungs are keyed by them).
+SHARDED_TWINS = {
+    "sharded_broadcast": "broadcast",
+    "sharded_membership": "membership",
+    "sharded_sparse": "sparse",
+    "sharded_streamcast": "streamcast",
+    "sharded_geo": "geo",
+}
+
+# Twins whose outputs append one trailing output (the outbox overflow) to
+# the unsharded scan's; the sparse twin counts its misses into the state's
+# own ``overflow``, so its outputs align one for one.
+SHARDED_EXTRA_OVERFLOW = frozenset({
+    "sharded_broadcast", "sharded_membership", "sharded_streamcast",
+    "sharded_geo",
+})
+
 
 def outbox_budget(stream_len: int, n_shards: int,
                   c: int = OUTBOX_SAFETY, floor: int = OUTBOX_FLOOR) -> int:

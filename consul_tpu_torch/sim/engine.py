@@ -70,6 +70,24 @@ from consul_tpu_torch.sim.metrics import (
 )
 
 
+# The program registry and the ladder (``sim/registry.py``), exported here
+# as the reference exports them; loaded on first touch, since the registry
+# imports this module.
+_REGISTRY_NAMES = frozenset({
+    "EQUIV_PAIRS", "EquivPair", "SimProgram", "broadcast_program_at",
+    "jaxlint_registry", "sparse_program_at", "swim_program_at",
+    "walk_equiv_pairs",
+})
+
+
+def __getattr__(name: str):
+    if name in _REGISTRY_NAMES:
+        from consul_tpu_torch.sim import registry
+
+        return getattr(registry, name)
+    raise AttributeError(name)
+
+
 def _per_tick(key: torch.Tensor, steps: int, *shape, dtype=torch.int32):
     """A scan output ``[*B, steps, *shape]`` for a key batch ``[*B, 2]``
     (``B`` empty for a plain run, ``[U]`` for a sweep)."""

@@ -471,8 +471,11 @@ def stacked_init(universe: Universe, device=None):
     axis as a real copy (no knob reaches an init, so every universe
     starts from the same state)."""
     spec = SWEEP_ENTRYPOINTS[universe.entrypoint]
-    state = spec.init(universe.cfg, resolve_device(device))
-    U = universe.U
+    return _stack(spec.init(universe.cfg, resolve_device(device)), universe.U)
+
+
+def _stack(state, U: int):
+    """``state`` repeated over a new leading universe axis, a real copy."""
     return type(state)(*(x.unsqueeze(0).repeat(U, *([1] * x.dim()))
                          for x in state))
 
@@ -566,3 +569,34 @@ def _make_sweep(entrypoint: str, U: int, telemetry: bool, mesh,
     sweep.__name__ = f"sweep_{entrypoint}_U{U}{tag}"
     return sweep
 
+
+def abstract_sweep_program(entrypoint: str, cfg, steps: int, U: int,
+                           knobs: tuple = (), track: tuple = (),
+                           telemetry: bool = False, mesh=None,
+                           exchange: str = "alltoall"):
+    """``(fn, make_args)`` of the batched program, the registry's build
+    shape (``sim/registry.py``): ``fn(*make_args(device))`` runs the sweep
+    on ``device``.  ``make_args`` allocates only when called: the
+    config's initial state stacked U times, ``PRNGKey(0)`` as every
+    universe's key and each knob at the config's own value, so U copies
+    of the plain study (at U = 1 exactly the plain scan's arguments);
+    ``make_args("meta")`` gives their shapes with no storage.
+    ``mesh=``/``exchange=`` build the composed sweep x shard program."""
+    spec = SWEEP_ENTRYPOINTS[entrypoint]
+    sweep = make_sweep(entrypoint, U, telemetry, mesh, exchange)
+
+    def make_args(device):
+        device = torch.device(device)
+        stacked = _stack(spec.init(cfg, device), U)
+        keys = PRNGKey(0, device=device).unsqueeze(0).repeat(U, 1)
+        values = tuple(
+            torch.full((U,), getattr(*_resolve_path(cfg, p)),
+                       dtype=knob_dtype(p), device=device)
+            for p in knobs
+        )
+        return stacked, keys, values
+
+    def fn(s, k, v):
+        return sweep(s, k, v, cfg, steps, knobs, track)
+
+    return fn, make_args

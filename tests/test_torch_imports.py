@@ -34,7 +34,8 @@ MODULES = (
     "consul_tpu_torch.sweep.frontier", "consul_tpu_torch.sweep.presets",
     "consul_tpu_torch.sweep.optimize", "consul_tpu_torch.telemetry",
     "consul_tpu_torch.obs", "consul_tpu_torch.obs.spec",
-    "consul_tpu_torch.obs.bridge", "consul_tpu_torch.cli",
+    "consul_tpu_torch.obs.bridge", "consul_tpu_torch.obs.profile",
+    "consul_tpu_torch.sim.registry", "consul_tpu_torch.cli",
     "consul_tpu_torch.net", "consul_tpu_torch.net.wire",
     "consul_tpu_torch.net.transport", "consul_tpu_torch.net.sim_transport",
     "chip_smoke",
