@@ -196,6 +196,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -222,7 +223,10 @@ EDGE_STEPS = 30
 AGG_STEPS = 60
 SWIM_AGG_STEPS = 450     # bench.py's STEPS for the headline
 SWIM_EDGE_STEPS = 100    # bench.py's STEPS_EDGES
-LIFEGUARD_STEPS = 160    # bench.py's cut of degraded1m's 300 ticks
+# degraded1m's own depth: Lifeguard's lower false-positive rate shows only
+# past tick 160, where bench.py cuts the study (both arms count the same
+# false positives up to there).
+LIFEGUARD_STEPS = 300
 SMALL_N = 4096
 # The sparse cold study at 100k: LAN's suspicion minimum is 100 ticks
 # there (4 * log10(1e5) * 1 s at 200 ms a tick) and its maximum 600.  The
@@ -630,6 +634,15 @@ def phase_lifeguard(dev, card: str) -> None:
               "suspecting + dead_known > n - 1")
     check(float(reps[False].mean_awareness[-1]) == 0.0,
           "awareness moved with Lifeguard off")
+    # tests/test_lifeguard.py's acceptance claim, at 1M.
+    on, off = reps[True], reps[False]
+    log(f"lifeguard 1M: fp_rate {on.fp_rate} on, {off.fp_rate} off; flaps "
+        f"{on.flap_count} on, {off.flap_count} off")
+    check(on.fp_total > 0, "lifeguard 1M: the faulted universe has no FPs")
+    check(on.fp_rate < off.fp_rate,
+          f"lifeguard 1M: FP rate {on.fp_rate} on, not below {off.fp_rate}")
+    check(on.flap_count <= off.flap_count,
+          f"lifeguard 1M: {on.flap_count} flaps on > {off.flap_count} off")
 
 
 def to_cpu(state):
@@ -3018,6 +3031,125 @@ async def _bridge_10k(dev, card: str) -> dict:
     return row
 
 
+def _instrument_host(ml, bridge) -> dict:
+    """Count what the host's own failure detector does: its probes, the
+    suspicions its failed probes raise, and the false ones among them
+    (the subject was up in the pool's ground truth when the probe ended).
+    Wraps the memberlist's probe; the protocol runs as it would."""
+    from consul_tpu_torch.net import NodeStatus
+    from consul_tpu_torch.net.sim_transport import parse_sim_addr
+
+    seen = {"probes": 0, "suspicions": 0, "false_suspicions": 0}
+    probe = ml._probe_node
+
+    async def counted(node):
+        before = node.status
+        await probe(node)
+        seen["probes"] += 1
+        if before == NodeStatus.ALIVE and node.status == NodeStatus.SUSPECT:
+            seen["suspicions"] += 1
+            j = parse_sim_addr(node.addr)
+            if j is not None and bridge.up(j):
+                seen["false_suspicions"] += 1
+
+    ml._probe_node = counted
+    return seen
+
+
+class _ErrorRecords(logging.Handler):
+    """Keeps every record logged at ERROR or above while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records: list = []
+
+    def emit(self, record) -> None:
+        self.records.append(record)
+
+
+async def _bridge_10k_host(dev, card: str) -> dict:
+    """The VERDICT bar with the port's own host agent: a ``Cluster`` (serf
+    over ``Memberlist``) joins the 10k pool through sim://17, holds n + 1
+    members, fires one user event, and the pool runs in blocks of 5 ticks
+    until the host's memberlist marks the crashed member DEAD and its
+    cluster raises MEMBER_FAILED.  The host's timers run on the event
+    loop, which the pool's ticks hold: its probes of live members may
+    time out, and those false suspicions are counted, not hidden."""
+    import asyncio
+
+    import torch
+
+    from consul_tpu_torch.eventing import Cluster, ClusterConfig, EventType
+    from consul_tpu_torch.net import (
+        NodeStatus,
+        SimBridge,
+        SimPoolConfig,
+        sim_addr,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    t_setup = time.perf_counter()
+    bridge = SimBridge(SimPoolConfig(
+        n=BRIDGE_N, profile=fast_profile(), interval_scale=BRIDGE_SCALE,
+        fail_at=((BRIDGE_FAILED, 3),), realtime=False, seed=0), device=dev)
+    transport = bridge.transport(HOST_ADDR)
+    failed: list = []
+    cluster = Cluster(ClusterConfig(
+        name="host0", profile=fast_profile(), interval_scale=BRIDGE_SCALE,
+        on_event=lambda ev: failed.extend(
+            (bridge.tick, m.name) for m in ev.members)
+        if ev.type == EventType.MEMBER_FAILED else None), transport)
+    ml = cluster.memberlist
+    counts = _instrument_host(ml, bridge)
+    await cluster.start()
+    check(await cluster.join([sim_addr(17)]) == 1, "10k host: join failed")
+    members = len(ml.members())
+    check(members == BRIDGE_N + 1, f"10k host: {members} members after the "
+          f"join, not {BRIDGE_N + 1}")
+    await cluster.user_event("deploy", b"big-pool-event")
+    await asyncio.sleep(0.05)
+    setup_s = time.perf_counter() - t_setup
+
+    target = f"sim-{BRIDGE_FAILED}"
+    ticks = 0
+    t0 = time.perf_counter()
+    while ticks < BRIDGE_MAX_TICKS:
+        await bridge.run_ticks(BRIDGE_BLOCK)
+        ticks += BRIDGE_BLOCK
+        node = ml.nodes.get(target)
+        if node is not None and node.status == NodeStatus.DEAD:
+            break
+    wall = time.perf_counter() - t0
+    node = ml.nodes.get(target)
+    coverage = bridge.event_coverage(b"big-pool-event")
+    failed_ticks = [t for t, name in failed if name == target]
+    row = {
+        "run": "bridge_10k_host", "n": BRIDGE_N, "members": members,
+        "ticks": ticks, "dead_at_host": bool(
+            node is not None and node.status == NodeStatus.DEAD),
+        "member_failed_tick": failed_ticks[0] if failed_ticks else None,
+        "event_coverage": coverage,
+        "host_awareness": bridge.host_awareness(transport),
+        "host_health_score": ml.awareness.score,
+        "host_probes": counts["probes"],
+        "host_suspicions": counts["suspicions"],
+        "host_false_suspicions": counts["false_suspicions"],
+        "host_false_failures": sum(name != target for _, name in failed),
+        "pool_pings": transport.ping_seq,
+        "missed_pings": transport.missed_pings,
+        "ticks_per_sec": ticks / wall, "wall_s": wall, "setup_s": setup_s,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "card": card,
+    }
+    log("bridge " + json.dumps(row))
+    await cluster.shutdown()
+    check(row["dead_at_host"], f"10k host: {target} not DEAD at the host in "
+          f"{ticks} ticks")
+    check(bool(failed_ticks), f"10k host: no MEMBER_FAILED for {target}")
+    check(coverage > 0.9, f"10k host: event coverage {coverage}")
+    return row
+
+
 def _bridge_script() -> dict:
     """tick -> the scripted host's actions before it: (kind, j, arg)."""
     from consul_tpu_torch.net import wire
@@ -3124,11 +3256,15 @@ async def _bridge_parity(dev) -> int:
 
 
 def phase_bridge(dev, card: str, broadcast_final: int) -> int:
-    """Phase 13: the 10k VERDICT bar, the bridge CUDA == CPU at n=512 and
+    """Phase 13: the 10k VERDICT bar with a scripted host and with the
+    port's own ``Cluster``, the bridge CUDA == CPU at n=512 and
     the multichip datapoint (``parallel.shard.main`` at phase 4's sharded
     1M broadcast).  Returns the datapoint's ring launches."""
     import asyncio
+    import gc
     import io
+
+    import torch
 
     from consul_tpu_torch.ops import ring_exchange
     from consul_tpu_torch.parallel import shard
@@ -3136,6 +3272,24 @@ def phase_bridge(dev, card: str, broadcast_final: int) -> int:
     t_phase = time.perf_counter()
     asyncio.run(_bridge_10k(dev, card))
     log(f"bridge n={BRIDGE_N} in {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    # Every error the host agent logs (a task that failed, an exception
+    # nobody retrieved) fails the run: the run is clean or it is wrong.
+    errors = _ErrorRecords()
+    logging.getLogger().addHandler(errors)
+    try:
+        asyncio.run(_bridge_10k_host(dev, card))
+        # The 10k pools go with their event loops; give their planes back.
+        gc.collect()
+    finally:
+        logging.getLogger().removeHandler(errors)
+    torch.cuda.empty_cache()
+    log(f"bridge n={BRIDGE_N} with the port's Cluster in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev)} bytes left allocated; "
+        f"{len(errors.records)} errors logged")
+    check(not errors.records, "10k host: errors logged: "
+          + "; ".join(r.getMessage() for r in errors.records[:3]))
     t0 = time.perf_counter()
     packets = asyncio.run(_bridge_parity(dev))
     log(f"bridge n={BRIDGE_PARITY_N}: CUDA == CPU on "

@@ -27,9 +27,13 @@ Layout (mirrors the JAX package):
     generators, reports, and the BASELINE presets ``dev3``, ``probe1k``,
     ``event100k``, ``stream100k``, ``suspect1m``, ``degraded1m``,
     ``multidc1m`` and ``geo100k`` (``sim.scenarios``).
-  - ``net``      -- the sim↔host bridge: a host agent joins a population
-    simulated on the device through ``SimTransport`` (``net/wire.py``
-    carries the wire grammar and its msgpack codec).
+  - ``net``      -- the host gossip plane (``Memberlist`` over in-memory,
+    UDP/TCP or simulated transports, the keyring, the broadcast queue)
+    and the sim↔host bridge: a host agent joins a population simulated
+    on the device through ``SimTransport`` (``net/wire.py`` carries the
+    wire grammar and its msgpack codec).
+  - ``eventing`` -- the serf layer over ``net``: ``Cluster`` with its
+    Lamport clocks, user events, queries, coalescing and snapshots.
   - ``convert``  -- numpy bridges for state and keys.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

@@ -9,8 +9,9 @@ the "network" on the other side of the transport is a *population*:
 on the device through the port's dense
 ``models.membership.membership_round``.
 
-A real host ``Memberlist`` (and the serf-equivalent ``Cluster`` above
-it) attaches to a :class:`SimTransport` and takes part in the simulated
+A real host agent, the port's own :class:`consul_tpu_torch.net.Memberlist`
+(and the serf-equivalent :class:`consul_tpu_torch.eventing.Cluster` above
+it), attaches to a :class:`SimTransport` and takes part in the simulated
 pool over the wire grammar (``net/wire.py``):
 
   host → sim   ``write_to("sim://j", packet)``: PING/INDIRECT_PING are

@@ -4,6 +4,7 @@ from consul_tpu_torch.protocol.formulas import (
     awareness_clamp,
     awareness_probe_delta,
     awareness_scaled_timeout,
+    push_pull_scale,
     remaining_suspicion_timeout,
     retransmit_limit,
     suspicion_timeout,
@@ -26,6 +27,7 @@ __all__ = [
     "awareness_clamp",
     "awareness_probe_delta",
     "awareness_scaled_timeout",
+    "push_pull_scale",
     "remaining_suspicion_timeout",
     "retransmit_limit",
     "suspicion_timeout",

@@ -7,11 +7,15 @@ memberlist reference:
   - remaining_suspicion_timeout: suspicion.go:86-97
   - awareness_scaled_timeout:    awareness.go:60-69
   - awareness_probe_delta:       state.go:283-497 probeNode
+  - push_pull_scale:             util.go:89-97
 """
 
 from __future__ import annotations
 
 import math
+
+# util.go:89-97 pushPullScaleThreshold: no push/pull scaling up to 32 nodes.
+PUSH_PULL_SCALE_THRESHOLD = 32
 
 
 def suspicion_timeout(suspicion_mult: int, n: int, interval_ms: float) -> float:
@@ -77,3 +81,17 @@ def retransmit_limit(retransmit_mult: int, n: int) -> int:
     memberlist/util.go:72-76.
     """
     return retransmit_mult * int(math.ceil(math.log10(float(n + 1))))
+
+
+def push_pull_scale(interval_ms: float, n: int) -> float:
+    """Scaled push/pull (full state sync) interval in ms.
+
+    memberlist/util.go:89-97: no scaling until n > 32, then
+    ``ceil(log2(n) - log2(32)) + 1`` multiplier (doubles every doubling).
+    """
+    if n <= PUSH_PULL_SCALE_THRESHOLD:
+        return interval_ms
+    multiplier = math.ceil(
+        math.log2(float(n)) - math.log2(float(PUSH_PULL_SCALE_THRESHOLD))
+    ) + 1.0
+    return multiplier * interval_ms

@@ -3,8 +3,10 @@
 The protocol constants of memberlist's three built-in configs
 (memberlist/config.go:273-361, DefaultLANConfig / DefaultWANConfig /
 DefaultLocalConfig).  All durations are in milliseconds; one simulator
-tick is one ``gossip_interval_ms``.  Only the fields the ported
-families read are kept.
+tick is one ``gossip_interval_ms``.  Every field of the reference's
+profile is kept; the fields the simulated families do not read (the
+host agent's) have the reference's LAN defaults, so a profile built
+without them is the one it was before they were added.
 """
 
 from __future__ import annotations
@@ -27,6 +29,12 @@ class GossipProfile:
     gossip_nodes: int             # config.go:294 (LAN 3, WAN 4, local 3)
     retransmit_mult: int          # config.go:284 (4, local 2)
     push_pull_interval_ms: int    # config.go:287 (LAN 30s, WAN 60s, local 15s)
+    # The host agent's: Memberlist reads the first two, Cluster the rest.
+    gossip_to_the_dead_ms: int = 30_000  # config.go:295 (LAN 30s, WAN 60s, local 15s)
+    udp_buffer_size: int = 1400   # config.go:307 (packet budget, bytes)
+    event_buffer_size: int = 512      # serf/config.go:291 (dedup ring entries)
+    query_buffer_size: int = 512      # serf/config.go: QueryBuffer
+    max_user_event_size: int = 512    # serf/config.go:311 (bytes)
 
     @property
     def probe_interval_ticks(self) -> int:
@@ -53,6 +61,7 @@ LAN = GossipProfile(
     gossip_nodes=3,
     retransmit_mult=4,
     push_pull_interval_ms=30_000,
+    gossip_to_the_dead_ms=30_000,
 )
 
 WAN = GossipProfile(
@@ -67,6 +76,7 @@ WAN = GossipProfile(
     gossip_nodes=4,
     retransmit_mult=4,
     push_pull_interval_ms=60_000,
+    gossip_to_the_dead_ms=60_000,
 )
 
 LOCAL = GossipProfile(
@@ -81,6 +91,7 @@ LOCAL = GossipProfile(
     gossip_nodes=3,
     retransmit_mult=2,
     push_pull_interval_ms=15_000,
+    gossip_to_the_dead_ms=15_000,
 )
 
 PROFILES = {"lan": LAN, "wan": WAN, "local": LOCAL}

@@ -38,8 +38,16 @@ MODULES = (
     "consul_tpu_torch.sim.registry", "consul_tpu_torch.cli",
     "consul_tpu_torch.net", "consul_tpu_torch.net.wire",
     "consul_tpu_torch.net.transport", "consul_tpu_torch.net.sim_transport",
+    "consul_tpu_torch.net.security", "consul_tpu_torch.net.broadcast_queue",
+    "consul_tpu_torch.net.suspicion", "consul_tpu_torch.net.vivaldi",
+    "consul_tpu_torch.net.memberlist", "consul_tpu_torch.eventing",
+    "consul_tpu_torch.eventing.lamport", "consul_tpu_torch.eventing.cluster",
+    "consul_tpu_torch.eventing.coalesce", "consul_tpu_torch.eventing.snapshot",
     "chip_smoke",
 )
+# The host gossip plane: plain asyncio, no optional package at import time.
+HOST_MODULES = ("consul_tpu_torch.net", "consul_tpu_torch.eventing")
+HOST_FORBIDDEN = ("msgpack", "cryptography")
 
 
 def test_every_port_module_is_checked():
@@ -71,6 +79,27 @@ def test_import_loads_no_jax():
         text=True, timeout=120, check=True,
     )
     assert out.stdout.strip() == "", f"port loaded {out.stdout.strip()}"
+
+
+def test_host_plane_loads_no_msgpack_or_cryptography():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {HOST_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from consul_tpu_torch.net import (InMemoryNetwork, Keyring,\n"
+        "    Memberlist, MemberlistConfig, Node, NodeStatus,\n"
+        "    TransmitLimitedQueue, UDPTransport)\n"
+        "from consul_tpu_torch.eventing import (Cluster, ClusterConfig,\n"
+        "    Coalescer, EventType, LamportClock, MemberStatus, Snapshotter)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {HOST_FORBIDDEN + FORBIDDEN!r})\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert out.stdout.strip() == "", f"host plane loaded {out.stdout.strip()}"
 
 
 def _imported_roots(path: pathlib.Path):
