@@ -34,52 +34,50 @@ Layout (mirrors the JAX package):
     wire grammar and its msgpack codec).
   - ``eventing`` -- the serf layer over ``net``: ``Cluster`` with its
     Lamport clocks, user events, queries, coalescing and snapshots.
+  - ``consensus``, ``store``, ``stream``, ``agent`` -- the consistency
+    plane: Raft, the iradix/memdb state store, the change stream, the
+    FSM and its snapshot archives.
   - ``convert``  -- numpy bridges for state and keys.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
+
+The names below load on first use, so that the host planes (``net``
+without its bridge, ``eventing``, ``consensus``, ``store``, ``stream``,
+``agent``) import without ``torch``.
 """
 
-from consul_tpu_torch.models import (
-    BroadcastConfig,
-    LifeguardConfig,
-    MembershipConfig,
-    MultiDCConfig,
-    SparseMembershipConfig,
-    SwimConfig,
-)
-from consul_tpu_torch.parallel import make_mesh, mesh_for
-from consul_tpu_torch.sim import (
-    run_broadcast,
-    run_geo,
-    run_lifeguard,
-    run_membership,
-    run_membership_sparse,
-    run_multidc,
-    run_streamcast,
-    run_swim,
-)
-from consul_tpu_torch.geo import GeoConfig  # noqa: E402 (needs sim first)
-from consul_tpu_torch.streamcast import StreamcastConfig  # noqa: E402
-from consul_tpu_torch import net  # noqa: E402 (the bridge over models)
+import importlib
 
-__all__ = [
-    "BroadcastConfig",
-    "GeoConfig",
-    "LifeguardConfig",
-    "MembershipConfig",
-    "MultiDCConfig",
-    "SparseMembershipConfig",
-    "StreamcastConfig",
-    "SwimConfig",
-    "make_mesh",
-    "mesh_for",
-    "net",
-    "run_broadcast",
-    "run_geo",
-    "run_lifeguard",
-    "run_membership",
-    "run_membership_sparse",
-    "run_multidc",
-    "run_streamcast",
-    "run_swim",
-]
+# name -> the module that defines it.  ``geo`` and ``streamcast`` build on
+# ``sim``, which is loaded first.
+_EXPORTS = {
+    "BroadcastConfig": "consul_tpu_torch.models",
+    "LifeguardConfig": "consul_tpu_torch.models",
+    "MembershipConfig": "consul_tpu_torch.models",
+    "MultiDCConfig": "consul_tpu_torch.models",
+    "SparseMembershipConfig": "consul_tpu_torch.models",
+    "SwimConfig": "consul_tpu_torch.models",
+    "make_mesh": "consul_tpu_torch.parallel",
+    "mesh_for": "consul_tpu_torch.parallel",
+    "run_broadcast": "consul_tpu_torch.sim",
+    "run_geo": "consul_tpu_torch.sim",
+    "run_lifeguard": "consul_tpu_torch.sim",
+    "run_membership": "consul_tpu_torch.sim",
+    "run_membership_sparse": "consul_tpu_torch.sim",
+    "run_multidc": "consul_tpu_torch.sim",
+    "run_streamcast": "consul_tpu_torch.sim",
+    "run_swim": "consul_tpu_torch.sim",
+    "GeoConfig": "consul_tpu_torch.geo",
+    "StreamcastConfig": "consul_tpu_torch.streamcast",
+}
+
+__all__ = sorted([*_EXPORTS, "net"])
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    importlib.import_module("consul_tpu_torch.sim")
+    value = getattr(importlib.import_module(_EXPORTS[name]), name)
+    globals()[name] = value
+    return value

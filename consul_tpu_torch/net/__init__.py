@@ -34,12 +34,18 @@ from consul_tpu_torch.net.memberlist import (
     Node,
     NodeStatus,
 )
-from consul_tpu_torch.net.sim_transport import (
-    SimBridge,
-    SimPoolConfig,
-    SimTransport,
-    sim_addr,
-)
+
+# The bridge needs ``torch``; it loads on first use so that the host plane
+# imports without it.
+_BRIDGE = ("SimBridge", "SimPoolConfig", "SimTransport", "sim_addr")
+
+
+def __getattr__(name):
+    if name not in _BRIDGE:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    from consul_tpu_torch.net import sim_transport
+
+    return getattr(sim_transport, name)
 
 __all__ = [
     "InMemoryNetwork",

@@ -163,35 +163,35 @@ _SIZED = {
 _EXT_HEADS = frozenset((0xC7, 0xC8, 0xC9, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8))
 
 
-def _unpack_sized(r: _Reader, kind: str, n: int) -> Any:
+def _unpack_sized(r: _Reader, kind: str, n: int, strict: bool) -> Any:
     if kind == "bin":
         return r.take(n)
     if kind == "str":
         return r.take(n).decode("utf-8")
     if kind == "array":
-        return [_unpack(r) for _ in range(n)]
+        return [_unpack(r, strict) for _ in range(n)]
     out = {}
     for _ in range(n):
-        k = _unpack(r)
-        if type(k) not in (str, bytes):
+        k = _unpack(r, strict)
+        if strict and type(k) not in (str, bytes):
             raise ValueError(f"{type(k).__name__} is not allowed for map "
                              "key when strict_map_key=True")
-        out[k] = _unpack(r)
+        out[k] = _unpack(r, strict)
     return out
 
 
-def _unpack(r: _Reader) -> Any:
+def _unpack(r: _Reader, strict: bool) -> Any:
     head = r.unpack("B")
     if head <= 0x7F:
         return head
     if head >= 0xE0:
         return head - 0x100
     if 0x80 <= head <= 0x8F:
-        return _unpack_sized(r, "map", head & 0x0F)
+        return _unpack_sized(r, "map", head & 0x0F, strict)
     if 0x90 <= head <= 0x9F:
-        return _unpack_sized(r, "array", head & 0x0F)
+        return _unpack_sized(r, "array", head & 0x0F, strict)
     if 0xA0 <= head <= 0xBF:
-        return _unpack_sized(r, "str", head & 0x1F)
+        return _unpack_sized(r, "str", head & 0x1F, strict)
     if head == 0xC0:
         return None
     if head in (0xC2, 0xC3):
@@ -200,18 +200,19 @@ def _unpack(r: _Reader) -> Any:
         return r.unpack(_SCALARS[head])
     if head in _SIZED:
         kind, fmt = _SIZED[head]
-        return _unpack_sized(r, kind, r.unpack(fmt))
+        return _unpack_sized(r, kind, r.unpack(fmt), strict)
     if head in _EXT_HEADS:
         raise ValueError(f"ext type 0x{head:02x}: the wire grammar has none")
     raise ValueError(f"Unpack failed: reserved byte 0x{head:02x}")
 
 
-def unpackb(data: bytes) -> Any:
-    """``msgpack.unpackb(data, raw=False)`` for the formats :func:`packb`
-    writes (and float32): arrays decode as lists, map keys must be str or
-    bytes, and trailing bytes raise."""
+def unpackb(data: bytes, strict_map_key: bool = True) -> Any:
+    """``msgpack.unpackb(data, raw=False, strict_map_key=...)`` for the
+    formats :func:`packb` writes (and float32): arrays decode as lists, map
+    keys must be str or bytes unless ``strict_map_key`` is False (msgpack's
+    default is True), and trailing bytes raise."""
     r = _Reader(bytes(data))
-    obj = _unpack(r)
+    obj = _unpack(r, strict_map_key)
     if r.pos != len(r.data):
         raise ValueError("Unpack failed: extra data")
     return obj

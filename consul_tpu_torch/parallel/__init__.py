@@ -1,5 +1,8 @@
 """The sharded plane: D logical shards of the node axis on one device."""
 
+# The models come first: ``models.lifeguard`` loads ``sim``, whose engine
+# loads ``parallel.shard``.
+import consul_tpu_torch.models  # noqa: F401
 from consul_tpu_torch.parallel.mesh import (
     NODE_AXIS,
     Mesh,

@@ -43,6 +43,12 @@ MODULES = (
     "consul_tpu_torch.net.memberlist", "consul_tpu_torch.eventing",
     "consul_tpu_torch.eventing.lamport", "consul_tpu_torch.eventing.cluster",
     "consul_tpu_torch.eventing.coalesce", "consul_tpu_torch.eventing.snapshot",
+    "consul_tpu_torch.consensus", "consul_tpu_torch.consensus.raft",
+    "consul_tpu_torch.store", "consul_tpu_torch.store.iradix",
+    "consul_tpu_torch.store.memdb", "consul_tpu_torch.store.state",
+    "consul_tpu_torch.stream", "consul_tpu_torch.stream.publisher",
+    "consul_tpu_torch.agent", "consul_tpu_torch.agent.fsm",
+    "consul_tpu_torch.agent.snapshot",
     "chip_smoke",
 )
 # The host gossip plane: plain asyncio, no optional package at import time.
@@ -100,6 +106,43 @@ def test_host_plane_loads_no_msgpack_or_cryptography():
         text=True, timeout=120, check=True,
     )
     assert out.stdout.strip() == "", f"host plane loaded {out.stdout.strip()}"
+
+
+# The consistency plane runs on the host CPU by design: it loads no torch.
+PLANE_MODULES = ("consul_tpu_torch.consensus", "consul_tpu_torch.store",
+                 "consul_tpu_torch.stream", "consul_tpu_torch.agent")
+PLANE_FORBIDDEN = HOST_FORBIDDEN + FORBIDDEN + ("torch",)
+
+
+@pytest.mark.parametrize("module", PLANE_MODULES)
+def test_consistency_plane_loads_no_torch(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {PLANE_FORBIDDEN!r})\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    assert out.stdout.strip() == "", f"{module} loaded {out.stdout.strip()}"
+
+
+def test_port_names_load_on_first_use():
+    """The package's top-level names resolve lazily, each to its module's
+    object, and an unknown name still raises."""
+    import consul_tpu_torch
+    from consul_tpu_torch import net, sim
+
+    assert consul_tpu_torch.run_swim is sim.run_swim
+    assert net.SimBridge.__module__ == "consul_tpu_torch.net.sim_transport"
+    assert "run_swim" in consul_tpu_torch.__all__
+    with pytest.raises(AttributeError):
+        consul_tpu_torch.no_such_name
+    with pytest.raises(AttributeError):
+        net.no_such_name
 
 
 def _imported_roots(path: pathlib.Path):

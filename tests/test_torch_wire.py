@@ -107,6 +107,24 @@ def test_malformed_input_raises():
         wire.unpackb(msgpack.packb({1: 2}))
 
 
+@pytest.mark.parametrize("body", [
+    {1: 2}, {-3: "a", 7: {2 ** 40: [1, {None: True}]}}, {1.5: b"x", "k": 0},
+    {True: [], b"b": {"s": {9: 9}}},
+])
+def test_loose_map_keys(body):
+    """``strict_map_key=False``, as the snapshot archive reads its state:
+    any key msgpack decodes, the same values; the default still refuses."""
+    raw = msgpack.packb(body, use_bin_type=True)
+    assert wire.packb(body) == raw
+    got = wire.unpackb(raw, strict_map_key=False)
+    assert got == msgpack.unpackb(raw, raw=False, strict_map_key=False)
+    assert got == body
+    with pytest.raises(ValueError, match="map key"):
+        wire.unpackb(raw)
+    with pytest.raises(ValueError, match="map key"):
+        wire.unpackb(raw, strict_map_key=True)
+
+
 def test_messages_and_compound_match_reference():
     bodies = [{"seq": -7, "node": "host0", "from": "sim-3"},
               {"name": "sim-1", "addr": "sim://1", "inc": 2 ** 20,
