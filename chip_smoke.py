@@ -106,7 +106,7 @@ Run from the root of the repository.  Phases, each fatal on failure:
      ticks) with the accounting identity in every universe; ``streamadv``
      (uniform, 4096); and bench.py's 1M sustained-load curve in its swept
      form (the paced stream, W=7, E=4, fanout 4, budget 4, done_frac 0.99,
-     rates 0.1 / 0.3 / 0.6 / 1.2 as one U = 4 sweep of 50 ticks per
+     rates 0.1 / 0.3 / 0.6 / 1.2 as one U = 4 sweep of 30 ticks per
      policy, bench.py's 150 cut for time) with its points, knee,
      rounds/s, device ms a tick and peak
      memory.
@@ -165,7 +165,20 @@ Run from the root of the repository.  Phases, each fatal on failure:
      InstallSnapshot, and the leader's snapshot through an archive and a
      replicated restore onto every server (the ``consistency`` line:
      entries and seconds a fold, leader changes, the final term, the
-     snapshot indexes, the archive's bytes and seconds); the bridge at
+     snapshot indexes, the archive's bytes and seconds); the server
+     plane on a 1,000-member pool on the card (``server_1k``: three
+     ``Server``s with ``bootstrap_expect=3``, each in the pool's ``pool``
+     segment, member 421 crashing at tick 3, and a ``Client``): the
+     leader's reconcile folds every LAN member (1,004 nodes), which
+     ``Catalog.ListNodes`` through the client returns; a blocking
+     ``Health.ChecksInState`` through the client wakes with
+     ``sim-421``'s ``serfHealth`` critical once the pool has run until it
+     is DEAD at every server (false failures counted); a KV write, its
+     CAS and stale reads from each follower, a session's lock and
+     ``Snapshot.Save`` through the client; equal stores after a barrier,
+     each catalog following its server's serf view, no ERROR logged (the
+     ``server`` line: fold seconds and entries, leader changes, reconcile
+     warnings, ticks to DEAD, wake seconds); the bridge at
      n=512 on the card and
      on the CPU, driven by one scripted host for 40 ticks (SUSPECT, DEAD
      and duplicate injections, a push/pull with a stale and an advancing
@@ -274,10 +287,10 @@ EVENT_STEPS = 100          # event100k's depth
 # bench.py's sustained-load curve (_streaming_curve, _STREAM_WORK): the
 # paced stream at n=1M, one U = 4 sweep per policy (phase 10).
 CURVE_RATES = (0.1, 0.3, 0.6, 1.2)
-CURVE_STEPS = 50           # bench.py's 150, cut for the smoke's time
+CURVE_STEPS = 30           # bench.py's 150, cut for the smoke's time
 CURVE_WORK = dict(window=7, chunks=4, fanout=4, chunk_budget=4,
                   done_frac=0.99)
-STREAM_PARITY_STEPS = 30
+STREAM_PARITY_STEPS = 20   # the loss ramp's [5, 15) inside
 # The knees of the per-rate 1M curve (PR 6's phase 9: one run_streamcast
 # per rate and policy), printed beside the swept curve's.
 PER_RATE_KNEES = {"uniform": 0.3, "pipeline": 0.6, "rarest": 0.6}
@@ -2085,22 +2098,22 @@ def phase_sweep(dev, card: str) -> None:
     # latencies depend on the segments and the seed, not on n.
     brownout = presets.wan_brownout(device=dev)
     cases = {
-        "seeds4k": presets.seed_sweep(universes=6, n=small, steps=30),
+        "seeds4k": presets.seed_sweep(universes=6, n=small, steps=20),
         "tuning": presets.tuning_grid(n=small, fanouts=(2, 4),
                                       scales=(0.15, 1.5), fail_at=20,
                                       steps=40),
         "faultmatrix": presets.fault_matrix(steps=30),
-        "streamadv": presets.stream_adversarial_ladder(n=small, steps=30),
+        "streamadv": presets.stream_adversarial_ladder(n=small, steps=20),
         "wanbrownout": dataclasses.replace(
             brownout, cfg=dataclasses.replace(brownout.cfg, n=small),
-            steps=40),
+            steps=20),
     }
     # The policies' rounds are held card == CPU in phase 9; here the
     # swept rate on the paced (uniform) and Poisson edges streams.
     cases["streamload_uniform"] = presets.stream_load_curve(
-        n=small, steps=30, rates=CURVE_RATES, policy="uniform",
+        n=small, steps=20, rates=CURVE_RATES, policy="uniform",
         arrivals="paced", **CURVE_WORK)
-    edges = presets.stream_load_curve(n=small, steps=30, policy="pipeline")
+    edges = presets.stream_load_curve(n=small, steps=20, policy="pipeline")
     cases["streamload_edges"] = Universe(
         entrypoint="streamcast", cfg=StreamcastConfig(**{
             **{f: getattr(edges.cfg, f) for f in (
@@ -3087,10 +3100,11 @@ def _instrument_host(ml, bridge) -> dict:
 
 
 class _ErrorRecords(logging.Handler):
-    """Keeps every record logged at ERROR or above while it is attached."""
+    """Keeps every record logged at ``level`` (ERROR unless given) or above
+    while it is attached."""
 
-    def __init__(self):
-        super().__init__(logging.ERROR)
+    def __init__(self, level: int = logging.ERROR):
+        super().__init__(level)
         self.records: list = []
 
     def emit(self, record) -> None:
@@ -3122,8 +3136,9 @@ class _Catalog:
     that left (``:801-809``).  A NotLeaderError is retried against the new
     leader, as the reference's loop retries on its next tick
     (``:691-708``), and counted.  Unlike the reference's loop it keeps one
-    AppendEntries batch of entries in flight (``fold``).  It stands in
-    for the port's ``Server`` until that is ported."""
+    AppendEntries batch of entries in flight (``fold``), which is what
+    lets a 10k view fold inside the smoke's time; the port's own
+    ``Server`` runs the real loop on a 1,000-member pool (``_server_1k``)."""
 
     def __init__(self):
         from consul_tpu_torch.consensus import InmemRaftNet
@@ -3291,28 +3306,11 @@ class _Catalog:
         that has not left, each ``serfHealth`` passing where the member is
         alive and critical where it failed, and one snapshot on every
         server.  Returns the count of each status."""
-        from consul_tpu_torch.eventing import MemberStatus
-        from consul_tpu_torch.store import HEALTH_CRITICAL, HEALTH_PASSING
-        from consul_tpu_torch.store.state import SERF_CHECK_ID
-
-        want = {MemberStatus.ALIVE: HEALTH_PASSING,
-                MemberStatus.FAILED: HEALTH_CRITICAL}
-        present = {name for name, st in view.items()
-                   if st != MemberStatus.LEFT}
         snaps = []
         for node in self.servers:
             store = node.fsm.store
-            _, nodes = store.nodes()
-            check({n["node"] for n in nodes} == present,
-                  f"{tag}: {node.id} holds {len(nodes)} nodes, the view "
-                  f"{len(present)}")
-            for name, st in view.items():
-                if st not in want:
-                    continue
-                serf = [c["status"] for c in store.node_checks(name)[1]
-                        if c["check_id"] == SERF_CHECK_ID]
-                check(serf == [want[st]], f"{tag}: {node.id}: {name} is "
-                      f"{serf}, the view says {st.name}")
+            diff = _catalog_diff(store, view)
+            check(not diff, f"{tag}: {node.id}: {diff}")
             snaps.append(store.snapshot())
         check(all(s == snaps[0] for s in snaps),
               f"{tag}: the servers' snapshots differ")
@@ -3529,6 +3527,327 @@ async def _consistency(catalog, view: dict, card: str, folds: dict) -> dict:
     return row
 
 
+SERVER_N = 1000               # BASELINE config 2's size (probe1k)
+SERVER_FAILED = 421
+SERVER_SERVERS = 3
+# tests/test_cluster_agents.py:21-38's cadences.
+SERVER_CADENCE = {"gossip_interval_scale": 0.05, "reconcile_interval_s": 0.2,
+                  "coordinate_update_period_s": 0.1,
+                  "session_ttl_sweep_s": 0.1, "autopilot_interval_s": 0.3,
+                  "autopilot_server_stabilization_s": 0.3}
+SERVER_FOLD_S = 120.0         # the longest the fold may take
+SERVER_WAKE_S = 60.0          # the longest the blocking query may wait
+
+
+async def _until(pred, timeout: float, what, step: float = 0.05):
+    """Poll ``pred`` (sync or async) until it is true and return its value;
+    fail the smoke after ``timeout`` seconds, naming ``what`` (a string, or
+    a function that gives it then)."""
+    import asyncio
+    import inspect
+
+    deadline = time.perf_counter() + timeout
+    while True:
+        got = pred()
+        if inspect.isawaitable(got):
+            got = await got
+        if got:
+            return got
+        if time.perf_counter() >= deadline:
+            check(False, f"server_1k: {what() if callable(what) else what} "
+                  f"not in {timeout:.0f} s")
+        await asyncio.sleep(step)
+
+
+def _catalog_diff(store, view: dict) -> str:
+    """The first way a catalog fails to follow a serf view (member name ->
+    ``MemberStatus``): a node for every member that has not left, its
+    ``serfHealth`` passing where the member is alive and critical where it
+    failed.  Empty where it follows."""
+    from consul_tpu_torch.eventing import MemberStatus
+    from consul_tpu_torch.store import HEALTH_CRITICAL, HEALTH_PASSING
+    from consul_tpu_torch.store.state import SERF_CHECK_ID
+
+    want = {MemberStatus.ALIVE: HEALTH_PASSING,
+            MemberStatus.FAILED: HEALTH_CRITICAL}
+    present = {name for name, st in view.items() if st != MemberStatus.LEFT}
+    nodes = {n["node"] for n in store.nodes()[1]}
+    if nodes != present:
+        return f"{len(nodes)} catalog nodes, {len(present)} in the view"
+    for name, st in view.items():
+        if st not in want:
+            continue
+        serf = [c["status"] for c in store.node_checks(name)[1]
+                if c["check_id"] == SERF_CHECK_ID]
+        if serf != [want[st]]:
+            return f"{name} is {serf}, the view says {st.name}"
+    return ""
+
+
+def _own_view_diff(server) -> str:
+    """``_catalog_diff`` of a ``Server``'s store against its own LAN view."""
+    diff = _catalog_diff(server.store, {
+        m.name: m.status for m in server._all_lan_members()})
+    return diff and f"{server.node_id}: {diff}"
+
+
+async def _server_1k(dev, card: str) -> dict:
+    """The port's server plane over a pool on the card: three ``Server``s
+    (``bootstrap_expect=3``) on one in-memory network, each also in the
+    ``pool`` segment, whose gossip transport is its own host on a
+    1,000-member ``SimBridge`` (the FAST profile, member 421 crashing at
+    tick 3), and one ``Client`` that finds them from their tags.
+
+    The leader's own reconcile loop folds the pool, the servers and the
+    client into the catalog; ``Catalog.ListNodes`` through the client
+    must return every LAN member.  A blocking ``Health.ChecksInState``
+    through the client waits from the fold's index while the pool runs in
+    blocks of 5 ticks until the crashed member is DEAD at every server's
+    segment memberlist; it must wake with that member's ``serfHealth``
+    critical (any other critical member is a false failure, counted).
+    Then a KV write, its CAS and stale reads from each follower, a
+    session's lock, and ``Snapshot.Save`` through the client, whose
+    archive must hold the leader's state at its index; after a barrier
+    the three stores are equal and each catalog follows its server's own
+    serf view."""
+    import asyncio
+
+    import torch
+
+    from consul_tpu_torch.agent import (
+        Client,
+        ClientConfig,
+        Server,
+        ServerConfig,
+        read_archive,
+    )
+    from consul_tpu_torch.eventing import EventType
+    from consul_tpu_torch.net import (
+        InMemoryNetwork,
+        NodeStatus,
+        SimBridge,
+        SimPoolConfig,
+        sim_addr,
+    )
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t_step = time.perf_counter()
+    warned = _ErrorRecords(logging.WARNING)
+    logging.getLogger("consul_tpu_torch.server").addHandler(warned)
+    bridge = SimBridge(SimPoolConfig(
+        n=SERVER_N, profile=fast_profile(), interval_scale=BRIDGE_SCALE,
+        fail_at=((SERVER_FAILED, 3),), realtime=False, seed=0), device=dev)
+    net = InMemoryNetwork()
+    target = f"sim-{SERVER_FAILED}"
+    servers = [
+        Server(ServerConfig(node_name=f"s{i}", bootstrap_expect=3,
+                            segments=("pool",), **SERVER_CADENCE),
+               gossip_transport=net.new_transport(f"s{i}:gossip"),
+               rpc_transport=net.new_transport(f"s{i}:rpc"),
+               segment_transports={
+                   "pool": bridge.transport(f"sim-host://s{i}")})
+        for i in range(SERVER_SERVERS)]
+    failed_at: dict = {}   # server -> (seconds, tick) of its MEMBER_FAILED
+
+    def on_event(sid):
+        def note(ev):
+            if ev.type == EventType.MEMBER_FAILED and any(
+                    m.name == target for m in ev.members):
+                failed_at.setdefault(sid, (time.perf_counter(), bridge.tick))
+        return note
+
+    for s in servers:
+        s.segment_serfs["pool"].config.on_event = on_event(s.node_id)
+    client = Client(ClientConfig(node_name="c0", gossip_interval_scale=0.05),
+                    gossip_transport=net.new_transport("c0:gossip"),
+                    rpc_transport=net.new_transport("c0:rpc"))
+    wins: list = []
+    try:
+        for s in servers:
+            await s.start()
+        for s in servers[1:]:
+            await s.join(["s0:gossip"])
+
+        def lone_leader():
+            leaders = [s for s in servers if s.is_leader()]
+            return leaders[0] if len(leaders) == 1 else None
+
+        async def leader():
+            return await _until(lone_leader, 30, "a leader")
+
+        await leader()
+        for s in servers:
+            s.raft.leadership_listeners.append(
+                lambda won, s=s: wins.append(s.node_id) if won else None)
+        await client.start()
+        await client.join(["s0:gossip"])
+        await _until(lambda: len(client.routers.servers()) == SERVER_SERVERS,
+                     30, "the client's servers")
+        for s in servers:
+            joined = await s.join_segment("pool", [sim_addr(17)])
+            check(joined == 1, f"server_1k: {s.node_id} joined {joined}")
+        t_join = time.perf_counter()
+        first_index = (await leader()).raft.last_index()
+
+        # The fold: the leader's reconcile loop, nothing registered by hand.
+        async def folded():
+            lead = lone_leader()
+            if lead is None:
+                return False
+            want = {m.name for m in lead._all_lan_members()}
+            if len(lead.store.nodes()[1]) < len(want):
+                return False
+            got = await client.rpc("Catalog.ListNodes", {})
+            return {n["node"] for n in got["nodes"]} == want and len(want)
+
+        nodes = await _until(folded, SERVER_FOLD_S, "the fold", step=0.1)
+        fold_s = time.perf_counter() - t_join
+        fold_entries = (await leader()).raft.last_index() - first_index
+        check(nodes == SERVER_N + SERVER_SERVERS + 1,
+              f"server_1k: {nodes} LAN members folded, not "
+              f"{SERVER_N + SERVER_SERVERS + 1}")
+        log(f"server_1k: {nodes} nodes folded in {fold_s:.2f} s "
+            f"({fold_entries} entries)")
+
+        # Detection through a blocking query from the fold's index.
+        first = await client.rpc("Health.ChecksInState", {"state": "critical"})
+        index = first["meta"]["index"]
+        query = {"state": "critical", "min_query_index": index,
+                 "max_query_time": SERVER_WAKE_S}
+        # Critical before the crash is false too.
+        wakes: list = [(None, {c["node"] for c in first["checks"]})]
+
+        async def watch():
+            body = dict(query)
+            while True:
+                got = await client.rpc("Health.ChecksInState", body)
+                names = {c["node"] for c in got["checks"]
+                         if c["check_id"] == "serfHealth"}
+                wakes.append((time.perf_counter(), names))
+                if target in names:
+                    return got
+                body["min_query_index"] = got["meta"]["index"]
+
+        waiter = asyncio.create_task(watch())
+        await asyncio.sleep(0.05)
+        check(not waiter.done(), "server_1k: the blocking query returned "
+              "before the crash")
+        ticks = 0
+        t_ticks = time.perf_counter()
+        while ticks < BRIDGE_MAX_TICKS:
+            await bridge.run_ticks(BRIDGE_BLOCK)
+            ticks += BRIDGE_BLOCK
+            ml_nodes = [s.segment_serfs["pool"].memberlist.nodes.get(target)
+                        for s in servers]
+            if all(n is not None and n.status == NodeStatus.DEAD
+                   for n in ml_nodes):
+                break
+        ticks_s = time.perf_counter() - t_ticks
+        check(all(n is not None and n.status == NodeStatus.DEAD
+                  for n in ml_nodes), f"server_1k: {target} not DEAD at "
+              f"every server in {ticks} ticks")
+        got = await asyncio.wait_for(waiter, SERVER_WAKE_S)
+        t_wake = wakes[-1][0]
+        lead = await leader()
+        check(lead.node_id in failed_at,
+              "server_1k: no MEMBER_FAILED at the leader")
+        false_failures = sorted(set().union(*(names for _, names in wakes))
+                                - {target})
+        wake_s = t_wake - failed_at[lead.node_id][0]
+
+        # Writes and reads through the client.
+        kv = {}
+        out = await client.rpc("KVS.Apply", {"op": "set", "entry": {
+            "key": "smoke/a", "value": b"1"}})
+        kv["set"] = out["result"] is True
+        rec = (await client.rpc("KVS.Get", {"key": "smoke/a"}))["entries"][0]
+        out = await client.rpc("KVS.Apply", {"op": "cas", "entry": {
+            "key": "smoke/a", "value": b"2",
+            "modify_index": rec["modify_index"]}})
+        kv["cas"] = out["result"] is True
+        stale = await client.rpc("KVS.Apply", {"op": "cas", "entry": {
+            "key": "smoke/a", "value": b"3",
+            "modify_index": rec["modify_index"]}})
+        kv["stale_cas_refused"] = stale["result"] is False
+        write_index = stale["index"]
+        lead = await leader()
+        reads = []
+        for s in servers:
+            if s is lead:
+                continue
+            await _until(lambda s=s: s.raft.last_applied >= write_index, 10,
+                         f"{s.node_id} applying index {write_index}")
+            got_s = await client.rpc_client.call(
+                f"{s.node_id}:rpc", "KVS.Get",
+                {"key": "smoke/a", "allow_stale": True})
+            reads.append(got_s["entries"][0]["value"] == b"2")
+        kv["stale_reads"] = len(reads) == SERVER_SERVERS - 1 and all(reads)
+        sess = await client.rpc("Session.Apply", {"op": "create", "session": {
+            "node": "c0", "name": "smoke"}})
+        sid = sess["result"]
+        lock = await client.rpc("KVS.Apply", {"op": "lock", "entry": {
+            "key": "smoke/lock", "value": b"c0", "session": sid}})
+        holder = (await client.rpc("KVS.Get", {"key": "smoke/lock"}))
+        kv["lock"] = lock["result"] is True and \
+            holder["entries"][0]["session"] == sid
+        for _ in range(3):
+            saved = await client.rpc("Snapshot.Save", {})
+            lead = await leader()
+            now_state, now_index = lead.store.snapshot(), lead.raft.last_index()
+            state, meta = read_archive(saved["archive"])
+            if meta["index"] == now_index:
+                break
+        kv["snapshot"] = (meta["index"] == saved["index"] == now_index
+                          and state == now_state)
+        check(all(kv.values()), f"server_1k: client checks {kv}")
+
+        # After a barrier: equal stores, each following its own serf view.
+        lead = await leader()
+        await lead.consistent_barrier()
+        last = lead.raft.last_applied
+        await _until(lambda: all(s.raft.last_applied >= last
+                                 for s in servers), 20, "the barrier")
+        snaps = [s.store.snapshot() for s in servers]
+        equal = all(snap == snaps[0] for snap in snaps)
+        check(equal, "server_1k: the servers' snapshots differ")
+        await _until(lambda: not any(_own_view_diff(s) for s in servers),
+                     20, lambda: "each catalog following its serf view ("
+                     + "; ".join(filter(None, map(_own_view_diff, servers)))
+                     + ")")
+        row = {
+            "run": "server_1k", "n": SERVER_N, "servers": SERVER_SERVERS,
+            "nodes": nodes,
+            "catalog_nodes": {s.node_id: len(s.store.nodes()[1])
+                              for s in servers},
+            "fold_s": fold_s, "fold_entries": fold_entries,
+            "leader": lead.node_id, "leader_changes": len(wins),
+            "final_term": lead.raft.current_term,
+            "reconcile_warnings": sum(
+                "reconcile failed" in r.getMessage() for r in warned.records),
+            "ticks": ticks, "ticks_s": ticks_s,
+            "member_failed_tick": {sid: t for sid, (_, t)
+                                   in sorted(failed_at.items())},
+            "wake_s": wake_s, "wakes": len(wakes) - 1,
+            "critical": sorted(c["node"] for c in got["checks"]),
+            "false_failures": false_failures,
+            "kv": kv, "archive_bytes": len(saved["archive"]),
+            "archive_index": meta["index"], "snapshots_equal": equal,
+            "step_s": time.perf_counter() - t_step,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if dev.type == "cuda" else None),
+            "card": card,
+        }
+        log("server " + json.dumps(row))
+        return row
+    finally:
+        logging.getLogger("consul_tpu_torch.server").removeHandler(warned)
+        await client.shutdown()
+        for s in servers:
+            await s.shutdown()
+        await bridge.shutdown()
+
+
 def _bridge_script() -> dict:
     """tick -> the scripted host's actions before it: (kind, j, arg)."""
     from consul_tpu_torch.net import wire
@@ -3636,7 +3955,8 @@ async def _bridge_parity(dev) -> int:
 
 def phase_bridge(dev, card: str, broadcast_final: int) -> int:
     """Phase 13: the 10k VERDICT bar with a scripted host and with the
-    port's own ``Cluster``, the bridge CUDA == CPU at n=512 and
+    port's own ``Cluster``, the port's ``Server``s and ``Client`` on a
+    1,000-member pool (``server_1k``), the bridge CUDA == CPU at n=512 and
     the multichip datapoint (``parallel.shard.main`` at phase 4's sharded
     1M broadcast).  Returns the datapoint's ring launches."""
     import asyncio
@@ -3668,6 +3988,22 @@ def phase_bridge(dev, card: str, broadcast_final: int) -> int:
         f"{torch.cuda.memory_allocated(dev)} bytes left allocated; "
         f"{len(errors.records)} errors logged")
     check(not errors.records, "10k host: errors logged: "
+          + "; ".join(r.getMessage() for r in errors.records[:3]))
+    t0 = time.perf_counter()
+    # The port's server plane on a 1,000-member pool; an ERROR from RPC,
+    # Raft or an endpoint fails the run as above.
+    errors = _ErrorRecords()
+    logging.getLogger().addHandler(errors)
+    try:
+        asyncio.run(_server_1k(dev, card))
+        gc.collect()
+    finally:
+        logging.getLogger().removeHandler(errors)
+    torch.cuda.empty_cache()
+    log(f"server_1k in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev)} bytes left allocated; "
+        f"{len(errors.records)} errors logged")
+    check(not errors.records, "server_1k: errors logged: "
           + "; ".join(r.getMessage() for r in errors.records[:3]))
     t0 = time.perf_counter()
     packets = asyncio.run(_bridge_parity(dev))

@@ -36,14 +36,17 @@ Layout (mirrors the JAX package):
     Lamport clocks, user events, queries, coalescing and snapshots.
   - ``consensus``, ``store``, ``stream``, ``agent`` -- the consistency
     plane: Raft, the iradix/memdb state store, the change stream, the
-    FSM and its snapshot archives.
+    FSM and its snapshot archives; and the server plane above it: the
+    RPC layer, the endpoints, ``Server`` and ``Client``.
+  - ``acl``, ``connect`` -- the ACL resolver with the ``jwt`` auth
+    method, and the mesh-gateway locator, which every ``Server`` builds.
   - ``convert``  -- numpy bridges for state and keys.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
 The names below load on first use, so that the host planes (``net``
 without its bridge, ``eventing``, ``consensus``, ``store``, ``stream``,
-``agent``) import without ``torch``.
+``agent``, ``acl``, ``connect``) import without ``torch``.
 """
 
 import importlib

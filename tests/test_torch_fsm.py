@@ -401,8 +401,10 @@ def test_agent_exports():
     from consul_tpu import stream as j_stream
     from consul_tpu_torch import agent, stream
 
-    assert agent.__all__ == ["ConsulFSM", "MessageType", "SnapshotError",
-                             "read_archive", "write_archive"]
+    assert agent.__all__ == ["Client", "ClientConfig", "ConsulFSM",
+                             "MessageType", "Server", "ServerConfig",
+                             "SnapshotError", "read_archive",
+                             "write_archive"]
     assert stream.__all__ == j_stream.__all__
 
 

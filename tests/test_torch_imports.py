@@ -48,7 +48,12 @@ MODULES = (
     "consul_tpu_torch.store.memdb", "consul_tpu_torch.store.state",
     "consul_tpu_torch.stream", "consul_tpu_torch.stream.publisher",
     "consul_tpu_torch.agent", "consul_tpu_torch.agent.fsm",
-    "consul_tpu_torch.agent.snapshot",
+    "consul_tpu_torch.agent.snapshot", "consul_tpu_torch.agent.rpc",
+    "consul_tpu_torch.agent.router", "consul_tpu_torch.agent.bexpr",
+    "consul_tpu_torch.agent.endpoints", "consul_tpu_torch.agent.server",
+    "consul_tpu_torch.agent.client", "consul_tpu_torch.acl",
+    "consul_tpu_torch.acl.engine", "consul_tpu_torch.acl.jwt",
+    "consul_tpu_torch.connect", "consul_tpu_torch.connect.gateways",
     "chip_smoke",
 )
 # The host gossip plane: plain asyncio, no optional package at import time.
@@ -108,9 +113,11 @@ def test_host_plane_loads_no_msgpack_or_cryptography():
     assert out.stdout.strip() == "", f"host plane loaded {out.stdout.strip()}"
 
 
-# The consistency plane runs on the host CPU by design: it loads no torch.
+# The consistency and server planes run on the host CPU by design: they
+# load no torch.
 PLANE_MODULES = ("consul_tpu_torch.consensus", "consul_tpu_torch.store",
-                 "consul_tpu_torch.stream", "consul_tpu_torch.agent")
+                 "consul_tpu_torch.stream", "consul_tpu_torch.agent",
+                 "consul_tpu_torch.acl", "consul_tpu_torch.connect")
 PLANE_FORBIDDEN = HOST_FORBIDDEN + FORBIDDEN + ("torch",)
 
 
