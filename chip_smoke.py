@@ -132,8 +132,9 @@ Run from the root of the repository.  Phases, each fatal on failure:
      telemetry=True)`` on the presets at their published sizes
      (``event100k`` and ``probe1k`` over 8 logical shards with each
      transport, ``stream100k`` over 8 shards with the ring, ``geo100k``,
-     ``dev3``): every output equal to the same preset without telemetry
-     (phase 9's runs, phase 6's unsharded probe1k, whose outputs the dense
+     ``dev3``; the probe1k twins run their first 120 of the preset's 300
+     ticks): every output equal to the same preset without telemetry
+     (phase 9's runs, phase 6's unsharded probe1k, whose prefix the dense
      twin equals with no overflow, all ten crashes detected; geo100k's twin
      here), the ring trace equal to the
      alltoall trace, one ring launch a tick (counted, and seen by
@@ -166,19 +167,28 @@ Run from the root of the repository.  Phases, each fatal on failure:
      replicated restore onto every server (the ``consistency`` line:
      entries and seconds a fold, leader changes, the final term, the
      snapshot indexes, the archive's bytes and seconds); the server
-     plane on a 1,000-member pool on the card (``server_1k``: three
-     ``Server``s with ``bootstrap_expect=3``, each in the pool's ``pool``
-     segment, member 421 crashing at tick 3, and a ``Client``): the
-     leader's reconcile folds every LAN member (1,004 nodes), which
-     ``Catalog.ListNodes`` through the client returns; a blocking
-     ``Health.ChecksInState`` through the client wakes with
-     ``sim-421``'s ``serfHealth`` critical once the pool has run until it
-     is DEAD at every server (false failures counted); a KV write, its
-     CAS and stale reads from each follower, a session's lock and
-     ``Snapshot.Save`` through the client; equal stores after a barrier,
-     each catalog following its server's serf view, no ERROR logged (the
-     ``server`` line: fold seconds and entries, leader changes, reconcile
-     warnings, ticks to DEAD, wake seconds); the bridge at
+     and agent planes on a 1,000-member pool on the card (``server_1k``:
+     three ``Server``s with ``bootstrap_expect=3``, each in the pool's
+     ``pool`` segment, member 421 crashing at tick 3, and a client
+     ``Agent`` with its HTTP API and DNS on 127.0.0.1): the leader's
+     reconcile folds every LAN member (1,004 nodes), which ``GET
+     /v1/catalog/nodes`` returns; a blocking ``GET
+     /v1/health/state/critical`` wakes with ``sim-421``'s ``serfHealth``
+     critical once the pool has run until it is DEAD at every server
+     (false failures counted); a KV write, its CAS, the stale CAS
+     refused, stale reads, a session's lock and ``GET /v1/snapshot``
+     over HTTP; a service ``web`` with a TTL check carried into every
+     catalog by anti-entropy, ``web.service.consul`` answering ``c0``
+     while it passes and NXDOMAIN once the TTL lapses,
+     ``sim-421.node.consul``, an unknown node's NXDOMAIN and
+     ``consul.service.consul``'s three servers over DNS; the agent's
+     members and metrics, an error from ``/v1/connect/ca/roots``; equal
+     stores after a barrier, each catalog following its server's serf
+     view, no ERROR logged (the ``server`` line: fold seconds and
+     entries, leader changes, reconcile warnings, ticks to DEAD, wake
+     seconds; the ``agent`` line: the HTTP wake, the seconds from
+     registration to the catalog and to DNS, the DNS answers, beside the
+     card's name and power limit); the bridge at
      n=512 on the card and
      on the CPU, driven by one scripted host for 40 ticks (SUSPECT, DEAD
      and duplicate injections, a push/pull with a stale and an advancing
@@ -1676,12 +1686,13 @@ def _ring_kernels_profiled(run) -> int:
 
 
 @contextlib.contextmanager
-def kept_reports(*names):
+def kept_reports(*names, steps: int = None):
     """Keep the report, and the config, of every call a preset makes to the
     ``sim.scenarios`` entry points ``names`` (``run_broadcast``, ...), in
     call order: the presets return summaries, and the per-tick outputs are
-    compared without another run of the study.  Yields ``(reports,
-    configs)``."""
+    compared without another run of the study.  ``steps`` runs each call
+    that many ticks in place of the preset's own depth.  Yields
+    ``(reports, configs)``."""
     from consul_tpu_torch.sim import scenarios
 
     reports, configs = [], []
@@ -1689,6 +1700,8 @@ def kept_reports(*names):
 
     def keeper(fn):
         def run(cfg, *args, **kw):
+            if steps is not None:
+                kw["steps"] = steps
             reports.append(fn(cfg, *args, **kw))
             configs.append(cfg)
             return reports[-1]
@@ -2586,7 +2599,11 @@ def phase_sweepshard_small(dev) -> None:
 
 
 # Phase 12: the telemetry plane and the command line.
-PROBE1K_STEPS = 300           # probe1k's depth
+# The depth of phase 12's probe1k twins (the preset runs 300 ticks), held
+# to the unsharded run's prefix: the ten subjects, crashed at tick 10, are
+# DEAD at every live observer by tick 87 (the port's CPU run of the
+# preset).
+PROBE1K_TWIN_STEPS = 120
 GEO100K_STEPS = 120           # geo100k's depth
 DEV3_STEPS = 10               # dev3's depth
 TELEMETRY_SWIM_STEPS = 60     # the headline study's first 60 ticks
@@ -2608,6 +2625,15 @@ def _report_diff(want, got, skip=()) -> str:
         elif w != g:
             return name
     return ""
+
+
+def _report_prefix(rep, steps: int):
+    """``rep`` cut to its first ``steps`` ticks (a trajectory is
+    prefix-stable): every per-tick array and ``ticks``."""
+    cut = {name: value[:steps] for name, value in vars(rep).items()
+           if isinstance(value, np.ndarray) and value.ndim
+           and value.shape[0] == rep.ticks}
+    return dataclasses.replace(rep, ticks=steps, **cut)
 
 
 def _column(rep, name: str) -> np.ndarray:
@@ -2736,10 +2762,11 @@ def phase_telemetry(dev, card: str, off: dict) -> dict:
          dict(devices=SHARDS, exchange="alltoall"), "run_broadcast",
          "broadcast", EVENT_STEPS, 0),
         ("probe1k_d8_ring", "probe1k", dict(devices=SHARDS, exchange="ring"),
-         "run_membership", "membership", PROBE1K_STEPS, PROBE1K_STEPS),
+         "run_membership", "membership", PROBE1K_TWIN_STEPS,
+         PROBE1K_TWIN_STEPS),
         ("probe1k_d8_alltoall", "probe1k",
          dict(devices=SHARDS, exchange="alltoall"), "run_membership",
-         "membership", PROBE1K_STEPS, 0),
+         "membership", PROBE1K_TWIN_STEPS, 0),
         ("stream100k_d8_ring", "stream100k",
          dict(devices=SHARDS, exchange="ring"), "run_streamcast",
          "streamcast", STREAM_STEPS, STREAM_STEPS),
@@ -2751,7 +2778,8 @@ def phase_telemetry(dev, card: str, off: dict) -> dict:
         t0 = time.perf_counter()
         ring_exchange.launches = 0
         before = host_cond.syncs
-        with kept_reports(runner) as (reports, configs):
+        depth = PROBE1K_TWIN_STEPS if name == "probe1k" else None
+        with kept_reports(runner, steps=depth) as (reports, configs):
             summary = run_scenario(name, seed=0, telemetry=True, device=dev,
                                    **kw)
         n_launch = ring_exchange.launches
@@ -2778,11 +2806,12 @@ def phase_telemetry(dev, card: str, off: dict) -> dict:
     for tag, rep in on.items():
         if tag.startswith("probe1k"):
             # probe1k's run without the trace is phase 6's unsharded one:
-            # the dense twin equals it where no outbox overflows.
+            # the dense twin equals its prefix where no outbox overflows.
             check(rep.overflow == 0 and summaries[tag]["all_detected"],
                   f"telemetry {tag}: overflow {rep.overflow}, or a crash "
                   "went undetected")
-            diff = _report_diff(off["probe1k"], rep, skip=("overflow",))
+            diff = _report_diff(_report_prefix(off["probe1k"], rep.ticks),
+                                rep, skip=("overflow",))
         else:
             diff = _report_diff(off[tag.replace("alltoall", "ring")], rep)
         check(not diff, f"telemetry {tag}: {diff} != the run without it")
@@ -2955,7 +2984,8 @@ def fast_profile():
         name="fast", probe_interval_ms=200, probe_timeout_ms=200,
         indirect_checks=3, suspicion_mult=2, suspicion_max_timeout_mult=2,
         awareness_max_multiplier=8, gossip_interval_ms=200, gossip_nodes=3,
-        retransmit_mult=4, push_pull_interval_ms=30_000)
+        gossip_to_the_dead_ms=30_000, retransmit_mult=4,
+        push_pull_interval_ms=30_000)
 
 
 def _host_self() -> dict:
@@ -3591,36 +3621,124 @@ def _own_view_diff(server) -> str:
     return diff and f"{server.node_id}: {diff}"
 
 
-async def _server_1k(dev, card: str) -> dict:
-    """The port's server plane over a pool on the card: three ``Server``s
-    (``bootstrap_expect=3``) on one in-memory network, each also in the
-    ``pool`` segment, whose gossip transport is its own host on a
-    1,000-member ``SimBridge`` (the FAST profile, member 421 crashing at
-    tick 3), and one ``Client`` that finds them from their tags.
+AGENT_TTL_S = 2               # the TTL of the agent's ``web`` check
+AGENT_DNS_S = 30.0            # the longest DNS may take to follow the catalog
 
-    The leader's own reconcile loop folds the pool, the servers and the
-    client into the catalog; ``Catalog.ListNodes`` through the client
-    must return every LAN member.  A blocking ``Health.ChecksInState``
-    through the client waits from the fold's index while the pool runs in
-    blocks of 5 ticks until the crashed member is DEAD at every server's
-    segment memberlist; it must wake with that member's ``serfHealth``
-    critical (any other critical member is a false failure, counted).
-    Then a KV write, its CAS and stale reads from each follower, a
-    session's lock, and ``Snapshot.Save`` through the client, whose
-    archive must hold the leader's state at its index; after a barrier
-    the three stores are equal and each catalog follows its server's own
-    serf view."""
+
+async def _http(addr: str, method: str, path: str, body: bytes = b""):
+    """One HTTP/1.1 exchange with an agent: ``(status, headers, payload)``,
+    header names in lower case."""
     import asyncio
+
+    host, port = addr.rsplit(":", 1)
+    reader, writer = await asyncio.open_connection(host, int(port))
+    head = (f"{method} {path} HTTP/1.1\r\nHost: {host}\r\n"
+            f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n")
+    writer.write(head.encode() + body)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    lines = head.decode().split("\r\n")
+    headers = {}
+    for line in lines[1:]:
+        k, _, v = line.partition(":")
+        headers[k.strip().lower()] = v.strip()
+    return int(lines[0].split()[1]), headers, payload
+
+
+async def _http_json(addr: str, method: str, path: str, body=None,
+                     status: int = 200):
+    """An exchange that must answer ``status``: its JSON body and headers."""
+    raw = b"" if body is None else (
+        body if isinstance(body, bytes) else json.dumps(body).encode())
+    got, headers, payload = await _http(addr, method, path, raw)
+    check(got == status, f"server_1k: {method} {path} answered {got}, not "
+          f"{status}: {payload[:200]!r}")
+    return json.loads(payload), headers
+
+
+async def _dns(addr: str, name: str, qtype: str):
+    """One DNS question over UDP: ``(rcode, answers)``."""
+    import asyncio
+
+    from consul_tpu_torch.agent import dns
+
+    host, port = addr.rsplit(":", 1)
+    loop = asyncio.get_running_loop()
+    fut = loop.create_future()
+
+    class Proto(asyncio.DatagramProtocol):
+        def connection_made(self, transport):
+            transport.sendto(dns.build_query(7, name, getattr(
+                dns, f"TYPE_{qtype}")))
+
+        def datagram_received(self, data, _addr):
+            if not fut.done():
+                fut.set_result(data)
+
+    transport, _ = await loop.create_datagram_endpoint(
+        Proto, remote_addr=(host, int(port)))
+    try:
+        _, rcode, answers = dns.parse_response(await asyncio.wait_for(fut, 5))
+    finally:
+        transport.close()
+    return rcode, answers
+
+
+def _srv_targets(answers) -> list:
+    """The targets of an SRV answer: the names of the A records that
+    accompany its SRV records, one for each."""
+    from consul_tpu_torch.agent import dns
+
+    srv = [r for r in answers if r.rtype == dns.TYPE_SRV]
+    targets = sorted(r.name for r in answers if r.rtype == dns.TYPE_A)
+    return targets if len(targets) == len(srv) else []
+
+
+async def _server_1k(dev, card: str) -> dict:
+    """The port's server and agent planes over a pool on the card: three
+    ``Server``s (``bootstrap_expect=3``) on one in-memory network, each
+    also in the ``pool`` segment, whose gossip transport is its own host
+    on a 1,000-member ``SimBridge`` (the FAST profile, member 421 crashing
+    at tick 3), and one client ``Agent`` (``c0``) that finds them from
+    their tags, with its HTTP API and DNS on ``127.0.0.1``.
+
+    Everything the agent offers a route for goes through its HTTP API
+    (``agent.rpc`` where it does not).  The leader's own reconcile loop
+    folds the pool, the servers and the agent into the catalog; ``GET
+    /v1/catalog/nodes`` must return every LAN member.  A blocking ``GET
+    /v1/health/state/critical?index=..&wait=..`` waits from the fold's
+    index while the pool runs in blocks of 5 ticks until the crashed
+    member is DEAD at every server's segment memberlist; it must wake with
+    that member's ``serfHealth`` critical (any other critical member is a
+    false failure, counted).  Then a KV write, its CAS, the stale CAS
+    refused, a ``?stale`` read and stale reads from each follower, a
+    session's lock and ``GET /v1/snapshot``, whose archive must hold the
+    leader's state at its index.  A service ``web`` with a TTL check,
+    registered with the agent, must reach every server's catalog by
+    anti-entropy; ``web.service.consul`` SRV answers ``c0`` while the
+    check passes and NXDOMAIN once the TTL lapses;
+    ``sim-421.node.consul`` answers an A record, an unknown node
+    NXDOMAIN, ``consul.service.consul`` the three servers;
+    ``/v1/agent/members`` lists the agent's LAN, ``/v1/agent/metrics``
+    answers from the port's telemetry, and ``/v1/connect/ca/roots`` an
+    error (Connect is not ported).  After a barrier the three stores are
+    equal and each catalog follows its server's own serf view."""
+    import asyncio
+    import base64
 
     import torch
 
     from consul_tpu_torch.agent import (
-        Client,
-        ClientConfig,
+        Agent,
+        AgentConfig,
         Server,
         ServerConfig,
         read_archive,
     )
+    from consul_tpu_torch.agent.dns import DNSServer
+    from consul_tpu_torch.agent.http import HTTPApi
     from consul_tpu_torch.eventing import EventType
     from consul_tpu_torch.net import (
         InMemoryNetwork,
@@ -3659,9 +3777,14 @@ async def _server_1k(dev, card: str) -> dict:
 
     for s in servers:
         s.segment_serfs["pool"].config.on_event = on_event(s.node_id)
-    client = Client(ClientConfig(node_name="c0", gossip_interval_scale=0.05),
-                    gossip_transport=net.new_transport("c0:gossip"),
-                    rpc_transport=net.new_transport("c0:rpc"))
+    # tests/test_agent.py's cadence.
+    agent = Agent(AgentConfig(node_name="c0", server=False,
+                              gossip_interval_scale=0.05, sync_interval_s=0.3,
+                              sync_retry_interval_s=0.2),
+                  gossip_transport=net.new_transport("c0:gossip"),
+                  rpc_transport=net.new_transport("c0:rpc"))
+    client = agent.delegate
+    api, dns = HTTPApi(agent), DNSServer(agent)
     wins: list = []
     try:
         for s in servers:
@@ -3680,10 +3803,12 @@ async def _server_1k(dev, card: str) -> dict:
         for s in servers:
             s.raft.leadership_listeners.append(
                 lambda won, s=s: wins.append(s.node_id) if won else None)
-        await client.start()
-        await client.join(["s0:gossip"])
+        await agent.start()
+        await agent.join(["s0:gossip"])
         await _until(lambda: len(client.routers.servers()) == SERVER_SERVERS,
                      30, "the client's servers")
+        http_addr = await api.start("127.0.0.1", 0)
+        dns_addr = await dns.start("127.0.0.1", 0)
         for s in servers:
             joined = await s.join_segment("pool", [sim_addr(17)])
             check(joined == 1, f"server_1k: {s.node_id} joined {joined}")
@@ -3698,8 +3823,8 @@ async def _server_1k(dev, card: str) -> dict:
             want = {m.name for m in lead._all_lan_members()}
             if len(lead.store.nodes()[1]) < len(want):
                 return False
-            got = await client.rpc("Catalog.ListNodes", {})
-            return {n["node"] for n in got["nodes"]} == want and len(want)
+            got, _ = await _http_json(http_addr, "GET", "/v1/catalog/nodes")
+            return {n["Node"] for n in got} == want and len(want)
 
         nodes = await _until(folded, SERVER_FOLD_S, "the fold", step=0.1)
         fold_s = time.perf_counter() - t_join
@@ -3710,24 +3835,24 @@ async def _server_1k(dev, card: str) -> dict:
         log(f"server_1k: {nodes} nodes folded in {fold_s:.2f} s "
             f"({fold_entries} entries)")
 
-        # Detection through a blocking query from the fold's index.
-        first = await client.rpc("Health.ChecksInState", {"state": "critical"})
-        index = first["meta"]["index"]
-        query = {"state": "critical", "min_query_index": index,
-                 "max_query_time": SERVER_WAKE_S}
+        # Detection through a blocking HTTP query from the fold's index.
+        first, headers = await _http_json(http_addr, "GET",
+                                          "/v1/health/state/critical")
         # Critical before the crash is false too.
-        wakes: list = [(None, {c["node"] for c in first["checks"]})]
+        wakes: list = [(None, {c["Node"] for c in first})]
 
         async def watch():
-            body = dict(query)
+            index = int(headers["x-consul-index"])
             while True:
-                got = await client.rpc("Health.ChecksInState", body)
-                names = {c["node"] for c in got["checks"]
-                         if c["check_id"] == "serfHealth"}
+                got, hdrs = await _http_json(
+                    http_addr, "GET", f"/v1/health/state/critical?index="
+                    f"{index}&wait={SERVER_WAKE_S:.0f}s")
+                names = {c["Node"] for c in got
+                         if c["CheckID"] == "serfHealth"}
                 wakes.append((time.perf_counter(), names))
                 if target in names:
                     return got
-                body["min_query_index"] = got["meta"]["index"]
+                index = int(hdrs["x-consul-index"])
 
         waiter = asyncio.create_task(watch())
         await asyncio.sleep(0.05)
@@ -3756,21 +3881,20 @@ async def _server_1k(dev, card: str) -> dict:
                                 - {target})
         wake_s = t_wake - failed_at[lead.node_id][0]
 
-        # Writes and reads through the client.
+        # Writes and reads through the agent's HTTP API.
         kv = {}
-        out = await client.rpc("KVS.Apply", {"op": "set", "entry": {
-            "key": "smoke/a", "value": b"1"}})
-        kv["set"] = out["result"] is True
-        rec = (await client.rpc("KVS.Get", {"key": "smoke/a"}))["entries"][0]
-        out = await client.rpc("KVS.Apply", {"op": "cas", "entry": {
-            "key": "smoke/a", "value": b"2",
-            "modify_index": rec["modify_index"]}})
-        kv["cas"] = out["result"] is True
-        stale = await client.rpc("KVS.Apply", {"op": "cas", "entry": {
-            "key": "smoke/a", "value": b"3",
-            "modify_index": rec["modify_index"]}})
-        kv["stale_cas_refused"] = stale["result"] is False
-        write_index = stale["index"]
+        out, _ = await _http_json(http_addr, "PUT", "/v1/kv/smoke/a", b"1")
+        kv["set"] = out is True
+        rows, _ = await _http_json(http_addr, "GET", "/v1/kv/smoke/a")
+        cas = rows[0]["ModifyIndex"]
+        out, _ = await _http_json(http_addr, "PUT",
+                                  f"/v1/kv/smoke/a?cas={cas}", b"2")
+        kv["cas"] = out is True
+        out, _ = await _http_json(http_addr, "PUT",
+                                  f"/v1/kv/smoke/a?cas={cas}", b"3")
+        kv["stale_cas_refused"] = out is False
+        _, hdrs = await _http_json(http_addr, "GET", "/v1/kv/smoke/a")
+        write_index = int(hdrs["x-consul-index"])
         lead = await leader()
         reads = []
         for s in servers:
@@ -3778,29 +3902,102 @@ async def _server_1k(dev, card: str) -> dict:
                 continue
             await _until(lambda s=s: s.raft.last_applied >= write_index, 10,
                          f"{s.node_id} applying index {write_index}")
+            # No route picks the server: the follower's read goes by RPC.
             got_s = await client.rpc_client.call(
                 f"{s.node_id}:rpc", "KVS.Get",
                 {"key": "smoke/a", "allow_stale": True})
             reads.append(got_s["entries"][0]["value"] == b"2")
-        kv["stale_reads"] = len(reads) == SERVER_SERVERS - 1 and all(reads)
-        sess = await client.rpc("Session.Apply", {"op": "create", "session": {
-            "node": "c0", "name": "smoke"}})
-        sid = sess["result"]
-        lock = await client.rpc("KVS.Apply", {"op": "lock", "entry": {
-            "key": "smoke/lock", "value": b"c0", "session": sid}})
-        holder = (await client.rpc("KVS.Get", {"key": "smoke/lock"}))
-        kv["lock"] = lock["result"] is True and \
-            holder["entries"][0]["session"] == sid
+        rows, _ = await _http_json(http_addr, "GET", "/v1/kv/smoke/a?stale")
+        reads.append(base64.b64decode(rows[0]["Value"]) == b"2")
+        kv["stale_reads"] = len(reads) == SERVER_SERVERS and all(reads)
+        out, _ = await _http_json(http_addr, "PUT", "/v1/session/create",
+                                  {"Node": "c0", "Name": "smoke"})
+        sid = out["ID"]
+        out, _ = await _http_json(http_addr, "PUT",
+                                  f"/v1/kv/smoke/lock?acquire={sid}", b"c0")
+        rows, _ = await _http_json(http_addr, "GET", "/v1/kv/smoke/lock")
+        kv["lock"] = out is True and rows[0]["Session"] == sid
         for _ in range(3):
-            saved = await client.rpc("Snapshot.Save", {})
+            st, hdrs, archive = await _http(http_addr, "GET", "/v1/snapshot")
+            check(st == 200, f"server_1k: GET /v1/snapshot answered {st}")
             lead = await leader()
             now_state, now_index = lead.store.snapshot(), lead.raft.last_index()
-            state, meta = read_archive(saved["archive"])
+            state, meta = read_archive(archive)
             if meta["index"] == now_index:
                 break
-        kv["snapshot"] = (meta["index"] == saved["index"] == now_index
-                          and state == now_state)
-        check(all(kv.values()), f"server_1k: client checks {kv}")
+        kv["snapshot"] = (meta["index"] == int(hdrs["x-consul-index"])
+                          == now_index and state == now_state)
+        check(all(kv.values()), f"server_1k: HTTP checks {kv}")
+
+        # A service of the agent's own, by anti-entropy into every catalog,
+        # and DNS following its health.
+        t_reg = time.perf_counter()
+        await _http_json(http_addr, "PUT", "/v1/agent/service/register", {
+            "Name": "web", "Port": 8080,
+            "Check": {"TTL": f"{AGENT_TTL_S}s"}})
+        await _http_json(http_addr, "PUT", "/v1/agent/check/pass/service:web")
+        t_pass = time.perf_counter()
+
+        def in_catalog(s, status):
+            svcs = [v["service"] for v in s.store.node_services("c0")[1]]
+            checks = {c["check_id"]: c["status"]
+                      for c in s.store.node_checks("c0")[1]}
+            return svcs == ["web"] and checks.get("service:web") == status
+
+        await _until(lambda: all(in_catalog(s, "passing") for s in servers),
+                     30, "web passing in every catalog")
+        catalog_s = time.perf_counter() - t_reg
+
+        async def srv_web():
+            return await _dns(dns_addr, "web.service.consul", "SRV")
+
+        async def answered():
+            rcode, answers = await srv_web()
+            return rcode == 0 and _srv_targets(answers) == ["c0.node.consul"]
+
+        await _until(answered, AGENT_DNS_S, "web.service.consul answering c0")
+        dns_up_s = time.perf_counter() - t_reg
+        web_up = _srv_targets((await srv_web())[1])
+
+        async def dropped():
+            return (await srv_web())[0] == 3
+
+        await _until(dropped, AGENT_TTL_S + AGENT_DNS_S,
+                     "web.service.consul dropping c0 after its TTL")
+        dns_down_s = time.perf_counter() - t_pass
+        check(all(in_catalog(s, "critical") for s in servers),
+              "server_1k: web's lapsed TTL is not critical in every catalog")
+        answers = {}
+        for name, qtype in ((f"{target}.node.consul", "A"),
+                            ("no-such-node.node.consul", "A"),
+                            ("consul.service.consul", "SRV")):
+            rcode, recs = await _dns(dns_addr, name, qtype)
+            answers[name] = {"rcode": rcode, "answers": len(recs)}
+        answers["consul.service.consul"]["targets"] = _srv_targets(recs)
+        answers["web.service.consul"] = {"passing": web_up,
+                                         "after_ttl_rcode": 3}
+        check(answers[f"{target}.node.consul"] == {"rcode": 0, "answers": 1},
+              f"server_1k: {target}.node.consul {answers}")
+        check(answers["no-such-node.node.consul"]["rcode"] == 3,
+              f"server_1k: an unknown node answered {answers}")
+        check(answers["consul.service.consul"]["targets"] == [
+            f"s{i}.node.consul" for i in range(SERVER_SERVERS)],
+            f"server_1k: consul.service.consul {answers}")
+
+        # The agent's own routes, and Connect's refusal.
+        members, _ = await _http_json(http_addr, "GET", "/v1/agent/members")
+        lan = sorted((m["Name"], m["Status"]) for m in members)
+        check(lan == [("c0", 1)] + [(f"s{i}", 1)
+                                    for i in range(SERVER_SERVERS)],
+              f"server_1k: /v1/agent/members {lan}")
+        snap, _ = await _http_json(http_addr, "GET", "/v1/agent/metrics")
+        http_gets = sum(c["Count"] for c in snap["Counters"]
+                        if c["Name"] == "http.GET")
+        check(http_gets > 0, "server_1k: /v1/agent/metrics counts no GET")
+        ca_status, _, ca_body = await _http(http_addr, "GET",
+                                            "/v1/connect/ca/roots")
+        check(ca_status >= 400, f"server_1k: /v1/connect/ca/roots answered "
+              f"{ca_status} {ca_body[:100]!r}")
 
         # After a barrier: equal stores, each following its own serf view.
         lead = await leader()
@@ -3829,9 +4026,9 @@ async def _server_1k(dev, card: str) -> dict:
             "member_failed_tick": {sid: t for sid, (_, t)
                                    in sorted(failed_at.items())},
             "wake_s": wake_s, "wakes": len(wakes) - 1,
-            "critical": sorted(c["node"] for c in got["checks"]),
+            "critical": sorted(c["Node"] for c in got),
             "false_failures": false_failures,
-            "kv": kv, "archive_bytes": len(saved["archive"]),
+            "kv": kv, "archive_bytes": len(archive),
             "archive_index": meta["index"], "snapshots_equal": equal,
             "step_s": time.perf_counter() - t_step,
             "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3839,10 +4036,20 @@ async def _server_1k(dev, card: str) -> dict:
             "card": card,
         }
         log("server " + json.dumps(row))
+        log("agent " + json.dumps({
+            "run": "server_1k", "agent": "c0", "http": http_addr,
+            "http_wake_s": wake_s, "false_failures": false_failures,
+            "register_to_catalog_s": catalog_s,
+            "register_to_dns_s": dns_up_s, "pass_to_dns_drop_s": dns_down_s,
+            "ttl_s": AGENT_TTL_S, "dns": answers, "lan_members": len(lan),
+            "metrics_http_gets": http_gets, "connect_ca_status": ca_status,
+            "card": card}))
         return row
     finally:
         logging.getLogger("consul_tpu_torch.server").removeHandler(warned)
-        await client.shutdown()
+        await api.stop()
+        await dns.stop()
+        await agent.shutdown()
         for s in servers:
             await s.shutdown()
         await bridge.shutdown()
@@ -3990,8 +4197,8 @@ def phase_bridge(dev, card: str, broadcast_final: int) -> int:
     check(not errors.records, "10k host: errors logged: "
           + "; ".join(r.getMessage() for r in errors.records[:3]))
     t0 = time.perf_counter()
-    # The port's server plane on a 1,000-member pool; an ERROR from RPC,
-    # Raft or an endpoint fails the run as above.
+    # The port's server and agent planes on a 1,000-member pool; an ERROR
+    # from RPC, Raft, an endpoint, HTTP or DNS fails the run as above.
     errors = _ErrorRecords()
     logging.getLogger().addHandler(errors)
     try:

@@ -1,13 +1,15 @@
 """Agent plane: the consistency-plane node logic above the gossip layer;
-the port's copy of ``consul_tpu.agent``, so far its replicated state
-machine, its snapshot archives, the RPC layer with its endpoints, and
-``Server`` and ``Client``.
+the port's copy of ``consul_tpu.agent``: its replicated state machine,
+its snapshot archives, the RPC layer with its endpoints, ``Server`` and
+``Client``, and the composition-root ``Agent`` with its local state,
+anti-entropy, checks, cache, config and the HTTP and DNS front ends.
 
 Equivalent of the reference's ``agent/consul/fsm``, ``snapshot/``,
-``agent/pool`` and ``agent/consul`` packages (SURVEY.md §2.2-2.3).
-``Agent`` comes with the HTTP and DNS front ends.
+``agent/pool``, ``agent/consul`` and ``agent/`` packages (SURVEY.md
+§2.2-2.3).
 """
 
+from consul_tpu_torch.agent.agent import Agent, AgentConfig
 from consul_tpu_torch.agent.client import Client, ClientConfig
 from consul_tpu_torch.agent.fsm import ConsulFSM, MessageType
 from consul_tpu_torch.agent.server import Server, ServerConfig
@@ -18,6 +20,8 @@ from consul_tpu_torch.agent.snapshot import (
 )
 
 __all__ = [
+    "Agent",
+    "AgentConfig",
     "Client",
     "ClientConfig",
     "ConsulFSM",

@@ -1,29 +1,40 @@
-"""The simulator's command line: ``python -m consul_tpu_torch.cli``.
+"""The command line: ``python -m consul_tpu_torch.cli``.
 
-The port of the ``sim``, ``sweep`` and ``profile`` commands of
-``consul_tpu/cli.py``,
-with their flags, their checks before anything runs and their JSON on
-standard output:
+The port of the ``sim``, ``sweep``, ``profile``, ``agent`` and
+``version`` commands of ``consul_tpu/cli.py``, with their flags, their
+checks before anything runs and their output:
 
     python -m consul_tpu_torch.cli sim --list
     python -m consul_tpu_torch.cli sim event100k --devices 8 \
         --exchange ring --metrics
     python -m consul_tpu_torch.cli sweep seeds4k --universes 64
     python -m consul_tpu_torch.cli profile --which big --execute
+    python -m consul_tpu_torch.cli agent -dev
+    python -m consul_tpu_torch.cli agent -config-file agent.hcl
 
 ``--devices D`` lays the study over D logical shards of one card
 (``parallel.mesh_for``).  ``--device`` (the one flag the reference lacks)
 names the device the study runs on: the current CUDA card unless given,
-``cpu`` to run on the host.  The agent commands of the reference are host
-code and are not part of the port.
+``cpu`` to run on the host.  ``agent`` runs a Consul agent over UDP with
+its HTTP API and DNS (host code, no ``torch``); the reference's other
+agent commands talk to it through the API client, which is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import dataclasses
 import json
+import signal
 import sys
+from pathlib import Path
 from typing import Optional
+
+from consul_tpu_torch.version import __version__
+
+DEFAULT_HTTP = "127.0.0.1:8500"
 
 # Streamcast chunk-selection policies for ``sim --policy``: a literal copy
 # of ``streamcast.model.POLICIES``, so that the parser builds without
@@ -55,6 +66,27 @@ def _add_device(sp) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="consul-tpu-torch")
     sub = p.add_subparsers(dest="command")
+
+    sp = sub.add_parser("agent", help="run an agent")
+    sp.set_defaults(fn=cmd_agent)
+    sp.add_argument("-dev", action="store_true",
+                    help="single-server dev mode")
+    sp.add_argument("-server", action="store_true")
+    sp.add_argument("-node", default="")
+    sp.add_argument("-datacenter", default=None)
+    sp.add_argument("-bootstrap-expect", type=int, default=None)
+    sp.add_argument("-join", action="append", default=[])
+    sp.add_argument("-bind", default=None)
+    sp.add_argument("-serf-port", type=int, default=0)
+    sp.add_argument("-rpc-port", type=int, default=0)
+    sp.add_argument("-http-port", type=int, default=None)
+    sp.add_argument("-dns-port", type=int, default=None)
+    sp.add_argument("-config-file", action="append", default=[],
+                    dest="config_file", help="JSON/HCL config file")
+    sp.add_argument("-config-dir", action="append", default=[],
+                    dest="config_dir")
+    sp.add_argument("-data-dir", default=None, dest="data_dir",
+                    help="persistence root (serf snapshot, rejoin state)")
 
     sp = sub.add_parser("sim", help="run a simulator scenario preset")
     sp.set_defaults(fn=cmd_sim)
@@ -164,7 +196,166 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--format", choices=("text", "json"),
                     default="text")
     _add_device(sp)
+
+    # Like the reference, version tolerates (and ignores) the client flags.
+    sp = sub.add_parser("version", help="print the CLI version")
+    sp.set_defaults(fn=cmd_version)
+    sp.add_argument("-http-addr", default=DEFAULT_HTTP)
+    sp.add_argument("-token", default="")
     return p
+
+
+def build_runtime(args):
+    """Files + flags → RuntimeConfig (the CLI half of config/builder.go:
+    -config-file/-config-dir in order, flags last)."""
+    from consul_tpu_torch.agent.config import Builder
+
+    b = Builder()
+    for path in args.config_file:
+        b.add_file(path)
+    for path in args.config_dir:
+        b.add_dir(path)
+    flags = {
+        "node_name": args.node or None,
+        "datacenter": args.datacenter,
+        "server": True if (args.server or args.dev) else None,
+        "bootstrap_expect": 1 if args.dev else args.bootstrap_expect,
+        "bind_addr": args.bind,
+        "ports_http": args.http_port,
+        "ports_dns": args.dns_port,
+        "data_dir": args.data_dir,
+    }
+    b.add_flags(flags)
+    rc = b.build()
+    if not args.node and rc.node_name == "node" and args.dev:
+        rc = dataclasses.replace(rc, node_name="dev")
+    return rc
+
+
+def cmd_agent(args) -> int:
+    """Run an agent until SIGINT or SIGTERM (``consul agent``)."""
+    return asyncio.run(_run_agent(args))
+
+
+async def _run_agent(args) -> int:
+    from consul_tpu_torch.agent import Agent, AgentConfig
+    from consul_tpu_torch.agent.config import reloadable_diff, thaw
+    from consul_tpu_torch.agent.dns import DNSServer
+    from consul_tpu_torch.agent.http import HTTPApi
+    from consul_tpu_torch.net.transport import UDPTransport
+
+    rc = build_runtime(args)
+    node = rc.node_name
+    server_mode = rc.server
+
+    gossip = UDPTransport(rc.bind_addr, args.serf_port)
+    rpc = UDPTransport(rc.bind_addr, args.rpc_port)
+    await gossip.start()
+    await rpc.start()
+    agent = Agent(
+        AgentConfig(
+            node_name=node,
+            datacenter=rc.datacenter,
+            server=server_mode,
+            bootstrap_expect=rc.bootstrap_expect,
+            profile=rc.gossip_profile(),
+            gossip_interval_scale=rc.gossip_interval_scale,
+            acl_enabled=rc.acl_enabled,
+            acl_default_policy=rc.acl_default_policy,
+            acl_master_token=rc.acl_master_token,
+            acl_agent_token=rc.acl_agent_token,
+            encrypt_key=rc.encrypt,
+            primary_datacenter=rc.primary_datacenter,
+            acl_replication_token=rc.acl_replication_token,
+            serf_snapshot_path=(
+                str(Path(rc.data_dir) / "serf" / "local.snapshot")
+                if rc.data_dir and server_mode
+                else ""
+            ),
+            rejoin_after_leave=rc.rejoin_after_leave,
+            auto_config_enabled=rc.auto_config_enabled,
+            auto_config_intro_token=rc.auto_config_intro_token,
+            auto_config_server_addresses=tuple(
+                rc.auto_config_server_addresses),
+            auto_config_authorizer=rc.auto_config_authorizer,
+        ),
+        gossip_transport=gossip,
+        rpc_transport=rpc,
+    )
+    await agent.start()
+    agent.load_definitions(
+        [thaw(s) for s in rc.services], [thaw(c) for c in rc.checks]
+    )
+    agent.dns_only_passing = rc.dns_only_passing
+    agent.dns_node_ttl_s = rc.dns_node_ttl_s
+    agent.dns_recursors = list(rc.dns_recursors)
+    api = HTTPApi(agent)
+    http_addr = await api.start(rc.bind_addr, rc.ports_http)
+    dns = DNSServer(agent)
+    dns_addr = await dns.start(rc.bind_addr, rc.ports_dns)
+
+    # SIGHUP: re-read the same sources, apply the reloadable subset
+    # (agent.go reloadConfigInternal).
+    def on_hup():
+        """Returns None on success, the error on failure — the HTTP
+        reload endpoint surfaces it to the caller (agent_endpoint.go
+        AgentReload returns the error); SIGHUP just logs it."""
+        nonlocal rc
+        try:
+            new_rc = build_runtime(args)
+            apply = reloadable_diff(rc, new_rc)
+            agent.reload(apply)
+            rc = new_rc
+            print(f"==> Reloaded configuration ({len(apply)} change(s))")
+        except Exception as e:  # noqa: BLE001 - keep running on bad config
+            print(f"==> Reload failed: {e}", file=sys.stderr)
+            sys.stdout.flush()
+            return e
+        sys.stdout.flush()
+        return None
+
+    loop = asyncio.get_running_loop()
+    try:
+        loop.add_signal_handler(signal.SIGHUP, on_hup)
+    except (NotImplementedError, AttributeError):  # pragma: no cover
+        pass
+    # PUT /v1/agent/reload triggers the same path as SIGHUP.
+    agent.reload_handler = on_hup
+
+    print("==> consul-tpu agent running!")
+    print(f"         Node name: {node}")
+    print(f"        Datacenter: {rc.datacenter}")
+    print(f"            Server: {server_mode}")
+    print(f"         HTTP addr: {http_addr}")
+    print(f"          DNS addr: {dns_addr} (udp)")
+    print(f"        Gossip via: {gossip.local_addr()}")
+    print(f"          RPC addr: {rpc.local_addr()}")
+    sys.stdout.flush()
+
+    join_addrs = list(args.join) + [str(a) for a in rc.retry_join]
+    if join_addrs:
+        n = await agent.join(join_addrs)
+        print(f"==> Joined {n} node(s)")
+        sys.stdout.flush()
+
+    stop = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            loop.add_signal_handler(sig, stop.set)
+        except NotImplementedError:  # pragma: no cover - non-unix
+            pass
+    await stop.wait()
+    print("==> Caught signal, gracefully leaving")
+    await agent.leave()
+    await api.stop()
+    await dns.stop()
+    await agent.shutdown()
+    return 0
+
+
+def cmd_version(args) -> int:
+    print(f"consul-tpu v{__version__}")
+    return 0
 
 
 def cmd_sim(args) -> int:

@@ -4,9 +4,8 @@ The protocol constants of memberlist's three built-in configs
 (memberlist/config.go:273-361, DefaultLANConfig / DefaultWANConfig /
 DefaultLocalConfig).  All durations are in milliseconds; one simulator
 tick is one ``gossip_interval_ms``.  Every field of the reference's
-profile is kept; the fields the simulated families do not read (the
-host agent's) have the reference's LAN defaults, so a profile built
-without them is the one it was before they were added.
+profile is kept, in its order and with its defaults;
+``gossip_to_the_dead_ms`` is required, as it is there.
 """
 
 from __future__ import annotations
@@ -27,10 +26,10 @@ class GossipProfile:
     awareness_max_multiplier: int    # config.go: AwarenessMaxMultiplier (8)
     gossip_interval_ms: int       # config.go:293 (LAN 200ms), :322 (WAN 500ms), :358
     gossip_nodes: int             # config.go:294 (LAN 3, WAN 4, local 3)
+    gossip_to_the_dead_ms: int    # config.go:295 (LAN 30s, WAN 60s, local 15s)
     retransmit_mult: int          # config.go:284 (4, local 2)
     push_pull_interval_ms: int    # config.go:287 (LAN 30s, WAN 60s, local 15s)
-    # The host agent's: Memberlist reads the first two, Cluster the rest.
-    gossip_to_the_dead_ms: int = 30_000  # config.go:295 (LAN 30s, WAN 60s, local 15s)
+    # The host agent's: Memberlist reads the first, Cluster the rest.
     udp_buffer_size: int = 1400   # config.go:307 (packet budget, bytes)
     event_buffer_size: int = 512      # serf/config.go:291 (dedup ring entries)
     query_buffer_size: int = 512      # serf/config.go: QueryBuffer
@@ -59,9 +58,9 @@ LAN = GossipProfile(
     awareness_max_multiplier=8,
     gossip_interval_ms=200,
     gossip_nodes=3,
+    gossip_to_the_dead_ms=30_000,
     retransmit_mult=4,
     push_pull_interval_ms=30_000,
-    gossip_to_the_dead_ms=30_000,
 )
 
 WAN = GossipProfile(
@@ -74,9 +73,9 @@ WAN = GossipProfile(
     awareness_max_multiplier=8,
     gossip_interval_ms=500,
     gossip_nodes=4,
+    gossip_to_the_dead_ms=60_000,
     retransmit_mult=4,
     push_pull_interval_ms=60_000,
-    gossip_to_the_dead_ms=60_000,
 )
 
 LOCAL = GossipProfile(
@@ -89,9 +88,9 @@ LOCAL = GossipProfile(
     awareness_max_multiplier=8,
     gossip_interval_ms=100,
     gossip_nodes=3,
+    gossip_to_the_dead_ms=15_000,
     retransmit_mult=2,
     push_pull_interval_ms=15_000,
-    gossip_to_the_dead_ms=15_000,
 )
 
 PROFILES = {"lan": LAN, "wan": WAN, "local": LOCAL}

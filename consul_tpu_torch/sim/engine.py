@@ -399,6 +399,7 @@ def run_broadcast(
     steps: int,
     seed: int = 0,
     origin: int = 0,
+    sharded: bool = False,
     mesh=None,
     warmup: bool = True,
     exchange: str = "alltoall",
@@ -413,7 +414,9 @@ def run_broadcast(
     ``report.metrics_trace`` with the ``[steps, M]`` Consul-named trace
     (``consul_tpu_torch/obs``) and every other output stays the same; the
     same seam is on every ``run_*`` below.  Runs on CUDA unless
-    ``device`` (or the mesh's device) says otherwise."""
+    ``device`` (or the mesh's device) says otherwise; ``sharded`` (the
+    reference's multi-card placement) is rejected."""
+    _check_later_slice(sharded=(sharded, False))
     _check_exchange(exchange, mesh)
     if device is None and mesh is not None:
         device = mesh.device
@@ -450,13 +453,17 @@ def run_swim(
     cfg: SwimConfig,
     steps: int,
     seed: int = 0,
+    sharded: bool = False,
+    mesh=None,
     warmup: bool = True,
     telemetry: bool = False,
     device=None,
 ) -> SwimReport:
     """One failure-detection study.  Runs on CUDA unless ``device`` says
     otherwise; with ``warmup`` the study runs once untimed first;
-    ``telemetry`` as :func:`run_broadcast`."""
+    ``telemetry`` as :func:`run_broadcast`; ``sharded`` and ``mesh`` (the
+    reference's multi-card placement) are rejected."""
+    _check_later_slice(sharded=(sharded, False), mesh=(mesh, None))
     dev = resolve_device(device)
     _, outs, wall = _timed(
         lambda: swim_init(cfg, device=dev),
@@ -481,13 +488,16 @@ def run_lifeguard(
     cfg,
     steps: int,
     seed: int = 0,
+    sharded: bool = False,
+    mesh=None,
     warmup: bool = True,
     telemetry: bool = False,
     device=None,
 ) -> FalsePositiveReport:
     """Fault-injected Lifeguard study (``cfg``: a LifeguardConfig): the
     accuracy (false-positive) workload, with :func:`run_swim`'s device,
-    timing and telemetry contract."""
+    timing, telemetry and placement contract."""
+    _check_later_slice(sharded=(sharded, False), mesh=(mesh, None))
     from consul_tpu_torch.models.lifeguard import lifeguard_init
 
     dev = resolve_device(device)

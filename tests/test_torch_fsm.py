@@ -401,7 +401,8 @@ def test_agent_exports():
     from consul_tpu import stream as j_stream
     from consul_tpu_torch import agent, stream
 
-    assert agent.__all__ == ["Client", "ClientConfig", "ConsulFSM",
+    assert agent.__all__ == ["Agent", "AgentConfig", "Client",
+                             "ClientConfig", "ConsulFSM",
                              "MessageType", "Server", "ServerConfig",
                              "SnapshotError", "read_archive",
                              "write_archive"]

@@ -54,10 +54,27 @@ MODULES = (
     "consul_tpu_torch.agent.client", "consul_tpu_torch.acl",
     "consul_tpu_torch.acl.engine", "consul_tpu_torch.acl.jwt",
     "consul_tpu_torch.connect", "consul_tpu_torch.connect.gateways",
+    "consul_tpu_torch.version", "consul_tpu_torch.agent.checks",
+    "consul_tpu_torch.agent.local", "consul_tpu_torch.agent.cache",
+    "consul_tpu_torch.agent.config", "consul_tpu_torch.connect.proxycfg",
+    "consul_tpu_torch.agent.agent", "consul_tpu_torch.agent.dns",
+    "consul_tpu_torch.agent.monitor", "consul_tpu_torch.agent.ui",
+    "consul_tpu_torch.agent.http",
     "chip_smoke",
 )
+# The agent plane: the agent with its HTTP API and DNS, and the command
+# line that starts it.
+AGENT_MODULES = (
+    "consul_tpu_torch.version", "consul_tpu_torch.agent.checks",
+    "consul_tpu_torch.agent.local", "consul_tpu_torch.agent.cache",
+    "consul_tpu_torch.agent.config", "consul_tpu_torch.connect.proxycfg",
+    "consul_tpu_torch.agent.agent", "consul_tpu_torch.agent.dns",
+    "consul_tpu_torch.agent.monitor", "consul_tpu_torch.agent.ui",
+    "consul_tpu_torch.agent.http", "consul_tpu_torch.cli",
+)
 # The host gossip plane: plain asyncio, no optional package at import time.
-HOST_MODULES = ("consul_tpu_torch.net", "consul_tpu_torch.eventing")
+HOST_MODULES = ("consul_tpu_torch.net", "consul_tpu_torch.eventing",
+                *AGENT_MODULES)
 HOST_FORBIDDEN = ("msgpack", "cryptography")
 
 
@@ -117,7 +134,8 @@ def test_host_plane_loads_no_msgpack_or_cryptography():
 # load no torch.
 PLANE_MODULES = ("consul_tpu_torch.consensus", "consul_tpu_torch.store",
                  "consul_tpu_torch.stream", "consul_tpu_torch.agent",
-                 "consul_tpu_torch.acl", "consul_tpu_torch.connect")
+                 "consul_tpu_torch.acl", "consul_tpu_torch.connect",
+                 *AGENT_MODULES)
 PLANE_FORBIDDEN = HOST_FORBIDDEN + FORBIDDEN + ("torch",)
 
 
@@ -168,3 +186,49 @@ def _imported_roots(path: pathlib.Path):
 def test_no_file_imports_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_monitor_streams_the_port_logger_tree():
+    """``/v1/agent/monitor`` feeds on the port's own logger tree:
+    ``consul_tpu_torch.*`` is not a child of ``consul_tpu`` in ``logging``,
+    so a line the port's ``Server`` logs reaches the feed only through
+    ``ROOT_LOGGER``."""
+    import asyncio
+
+    from consul_tpu_torch.agent import monitor
+    from consul_tpu_torch.agent import server as t_server
+    from consul_tpu_torch.agent.agent import Agent, AgentConfig
+    from consul_tpu_torch.agent.http import HTTPApi
+    from consul_tpu_torch.net.transport import InMemoryNetwork
+
+    assert monitor.ROOT_LOGGER == "consul_tpu_torch"
+
+    async def main():
+        net = InMemoryNetwork()
+        agent = Agent(AgentConfig(node_name="dev", gossip_interval_scale=0.05,
+                                  reconcile_interval_s=0.2),
+                      gossip_transport=net.new_transport("dev:gossip"),
+                      rpc_transport=net.new_transport("dev:rpc"))
+        await agent.start()
+        api = HTTPApi(agent)
+        host, port = (await api.start()).rsplit(":", 1)
+        reader, writer = await asyncio.open_connection(host, int(port))
+        try:
+            writer.write(("GET /v1/agent/monitor?loglevel=info HTTP/1.1\r\n"
+                          f"Host: {host}\r\n\r\n").encode())
+            await writer.drain()
+            while (await reader.readline()) not in (b"\r\n", b""):
+                pass
+            t_server.log.info("from-the-port-server")
+            got = b""
+            while b"from-the-port-server" not in got:
+                size = int((await asyncio.wait_for(reader.readline(), 10))
+                           .strip() or b"0", 16)
+                got += await reader.readexactly(size + 2)
+            assert b"consul_tpu_torch.server" in got
+        finally:
+            writer.close()
+            await api.stop()
+            await agent.shutdown()
+
+    asyncio.run(asyncio.wait_for(main(), 30))

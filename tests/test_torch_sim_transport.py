@@ -58,8 +58,7 @@ FAST_FIELDS = dict(
     retransmit_mult=4,
     push_pull_interval_ms=30_000,
 )
-FAST = GossipProfile(**{k: v for k, v in FAST_FIELDS.items()
-                        if k != "gossip_to_the_dead_ms"})
+FAST = GossipProfile(**FAST_FIELDS)
 J_FAST = j_profiles.GossipProfile(**FAST_FIELDS)
 PROFILES = {"fast": (J_FAST, FAST), "lan": (j_profiles.LAN, LAN)}
 
