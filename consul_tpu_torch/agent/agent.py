@@ -1,8 +1,5 @@
 """The Agent: composition root tying the delegate, local state, checks
 and user events together; the port's copy of ``consul_tpu/agent/agent.py``.
-A client's ``auto_encrypt`` and ``auto_config_enabled`` need Connect's CA
-and the auto-config endpoint, which are not ported yet: they are refused
-when the agent is built.
 
 Equivalent of ``agent/agent.go`` (SURVEY.md §2.3): every node runs an
 Agent; 3-5 run with a Server delegate (raft quorum), the rest with a
@@ -109,12 +106,6 @@ class Agent:
         rpc_transport: Optional[Transport] = None,
         wan_transport: Optional[Transport] = None,
     ):
-        if not config.server:
-            for knob in ("auto_encrypt", "auto_config_enabled"):
-                if getattr(config, knob):
-                    raise NotImplementedError(
-                        f"{knob}= is not ported yet (it needs Connect's CA "
-                        "and the AutoEncrypt/AutoConfig endpoints)")
         self.config = config
         # Shared keyring for LAN (and WAN) gossip (security.go).
         self.keyring = None

@@ -530,7 +530,7 @@ class ConfigEntry(_Endpoint):
 class PreparedQuery(_Endpoint):
     """prepared_query_endpoint.go — execute resolves the query into a
     health-filtered node list (RTT ordering lands with the coordinate
-    work in consul_tpu.models.vivaldi)."""
+    work in consul_tpu_torch.models.vivaldi)."""
 
     async def apply(self, body: dict):
         op = body.get("op")
@@ -820,6 +820,49 @@ def _wrap(idx_and_data: tuple[int, Any], key: str) -> tuple[int, dict]:
     return idx, {key: data}
 
 
+class ConnectCA(_Endpoint):
+    """connect_ca_endpoint.go: roots + leaf signing.  The built-in CA
+    lives on the leader; the active root record is replicated so every
+    server serves Roots."""
+
+    async def roots(self, body: dict):
+        return await self._read(
+            "ConnectCA.Roots", body,
+            lambda ws: _wrap(self.server.store.ca_roots(ws=ws), "roots"),
+        )
+
+    async def sign(self, body: dict):
+        """Sign a leaf for a service (connect_ca_endpoint.go Sign):
+        leader-only (it holds the private key)."""
+        self.server.acl_check(
+            body, "service", body.get("service", ""), WRITE
+        )
+        fwd = await self.server.forward("ConnectCA.Sign", body)
+        if fwd is not None:
+            return fwd
+        ca = await self.server.connect_ca()
+        leaf = ca.sign_leaf(body["service"])
+        return {"leaf": leaf}
+
+    async def rotate(self, body: dict):
+        """Mint + activate a new signing root (leader_connect.go CA
+        config update path): the outgoing key CROSS-SIGNS the new root
+        (provider_consul.go CrossSignCA) so old-root-pinned peers keep
+        verifying new leaves via the chain; old roots stay stored so
+        outstanding leaves verify until expiry, and proxies roll their
+        certs when they observe the new active root."""
+        self.server.acl_check(body, "operator", "", WRITE)
+        fwd = await self.server.forward("ConnectCA.Rotate", body)
+        if fwd is not None:
+            return fwd
+        ca = await self.server.connect_ca()
+        root = ca.rotate()
+        await self.server.raft_apply(
+            MessageType.CONNECT_CA, {"op": "set-root", "root": root}
+        )
+        return {"root_id": root["id"]}
+
+
 class Intention(_Endpoint):
     """intention_endpoint.go: CRUD + match + connect authorize."""
 
@@ -914,6 +957,52 @@ class Intention(_Endpoint):
         return {"allowed": default_allow, "reason": "default policy"}
 
 
+class DiscoveryChain(_Endpoint):
+    """discovery_chain_endpoint.go Get: compile one service's chain
+    from the current config entries, blocking on entry changes."""
+
+    async def get(self, body: dict):
+        from consul_tpu_torch.connect.discoverychain import (
+            compile_chain,
+            entries_for_chain,
+        )
+
+        name = body.get("name", "")
+        self.server.acl_check(body, "service", name, READ)
+
+        def run(ws):
+            idx, entries = entries_for_chain(self.server.store, name, ws=ws)
+            chain = compile_chain(
+                name, self.server.config.datacenter, entries,
+                use_in_datacenter=body.get("use_in_datacenter", ""),
+                override_protocol=body.get("override_protocol", ""),
+                override_connect_timeout_s=float(
+                    body.get("override_connect_timeout_s", 0) or 0),
+            )
+            return max(idx, 1), {"chain": chain}
+
+        return await self._read("DiscoveryChain.Get", body, run)
+
+
+class AutoEncrypt(_Endpoint):
+    """consul/auto_encrypt_endpoint.go: a CLIENT agent bootstraps its
+    TLS identity — an agent-kind SPIFFE leaf + the CA roots — in one
+    RPC at startup, before it can do anything else."""
+
+    async def sign(self, body: dict):
+        # auto_encrypt_endpoint.go Sign: an anonymous caller must not be
+        # able to mint an agent identity for an arbitrary node — require
+        # node:write on the claimed node name (the intro/agent token).
+        self.server.acl_check(body, "node", body.get("node", ""), WRITE)
+        fwd = await self.server.forward("AutoEncrypt.Sign", body)
+        if fwd is not None:
+            return fwd
+        ca = await self.server.connect_ca()
+        leaf = ca.sign_leaf(body.get("node", ""), kind="agent")
+        _, roots = self.server.store.ca_roots()
+        return {"leaf": leaf, "roots": roots}
+
+
 def _interpolate_bind_name(template: str, vars_: dict[str, str]) -> str:
     """``${var}`` interpolation over projected identity vars
     (agent/consul/acl_endpoint.go computeBindingRuleBindName →
@@ -928,6 +1017,126 @@ def _interpolate_bind_name(template: str, vars_: dict[str, str]) -> str:
         return vars_[name]
 
     return _re.sub(r"\$\{([A-Za-z0-9_.]+)\}", sub, template)
+
+
+class AutoConfig(_Endpoint):
+    """consul/auto_config_endpoint.go InitialConfiguration: a brand-new
+    CLIENT with nothing but a server address and a JWT intro token
+    bootstraps its full runtime — gossip encryption keys, an ACL agent
+    token, its TLS identity, and cluster-level settings — in ONE RPC,
+    before it can join gossip or speak ACL'd RPCs."""
+
+    async def initial_configuration(self, body: dict):
+        fwd = await self.server.forward(
+            "AutoConfig.InitialConfiguration", body
+        )
+        if fwd is not None:
+            return fwd
+        authz = self.server.config.auto_config_authorizer
+        if not authz:
+            raise RPCError("auto-config is disabled on this server")
+        node = body.get("node", "")
+        if not node:
+            raise ValueError("auto-config request must name a node")
+        # The node name is caller-controlled AND interpolated into the
+        # claim-assertion selectors below — restrict it to the hostname
+        # alphabet so it can never smuggle bexpr syntax
+        # (auto_config_endpoint.go validates against InvalidDnsRe the
+        # same way).
+        import re as _re
+
+        if not _re.fullmatch(r"[A-Za-z0-9_.-]{1,128}", node):
+            raise ValueError(f"invalid node name {node!r}")
+        from consul_tpu_torch.acl import jwt as jwt_mod
+
+        try:
+            claims = jwt_mod.validate(
+                body.get("jwt", ""),
+                secret=authz.get("jwt_secret", ""),
+                pub_keys=authz.get("jwt_validation_pub_keys") or [],
+                bound_issuer=authz.get("bound_issuer", ""),
+                bound_audiences=authz.get("bound_audiences") or [],
+                clock_skew_s=float(authz.get("clock_skew_s", 30.0)),
+            )
+        except jwt_mod.JWTError as e:
+            raise RPCError(ERR_PERMISSION_DENIED) from e
+        selectable, _projected = jwt_mod.identity_from_claims(
+            claims,
+            authz.get("claim_mappings") or {},
+            authz.get("list_claim_mappings") or {},
+        )
+        # auto_config_endpoint.go claim assertions: every configured
+        # selector must match the verified identity; @@node@@ stands in
+        # for the claimed node name (lib.InterpolateHIL equivalent).
+        from consul_tpu_torch.agent.bexpr import FilterError, create_filter
+
+        for raw in authz.get("claim_assertions") or []:
+            selector = raw.replace("${node}", node)
+            try:
+                if not create_filter(selector).match(selectable):
+                    raise RPCError(ERR_PERMISSION_DENIED)
+            except FilterError as e:
+                raise RPCError(ERR_PERMISSION_DENIED) from e
+
+        cfg = self.server.config
+        out: dict = {
+            "config": {
+                "datacenter": cfg.datacenter,
+                "primary_datacenter": cfg.primary_datacenter
+                or cfg.datacenter,
+                "node_name": node,
+                "acl": {
+                    "enabled": cfg.acl_enabled,
+                    "default_policy": cfg.acl_default_policy,
+                },
+            },
+            # Primary key FIRST, then the rest of the ring — a client
+            # bootstrapping mid-rotation must decrypt traffic still
+            # using older keys.
+            "gossip_keys": (
+                [cfg.keyring.primary_b64()]
+                + [k for k in cfg.keyring.list_keys()
+                   if k != cfg.keyring.primary_b64()]
+                if cfg.keyring else []
+            ),
+        }
+        if cfg.acl_enabled:
+            # Mint (or REUSE) a node-identity agent token so
+            # anti-entropy and agent-plane RPCs work under enforcement
+            # (auto_config_endpoint.go updateTokenResponse persists and
+            # reuses) — a retrying or restarting client must not grow
+            # an orphaned token per call.
+            desc = f"auto-config token for node {node!r}"
+            _, tokens = self.server.store.acl_token_list()
+            existing = next(
+                (t for t in tokens
+                 if t.get("description") == desc
+                 and t.get("node_identities")), None,
+            )
+            if existing is not None:
+                secret = existing["secret_id"]
+            else:
+                token = {
+                    "secret_id": str(uuid.uuid4()),
+                    "accessor_id": str(uuid.uuid4()),
+                    "description": desc,
+                    "auth_method": "",
+                    "local": True,
+                    "node_identities": [
+                        {"node_name": node, "datacenter": cfg.datacenter}
+                    ],
+                }
+                await self.server.raft_apply(
+                    MessageType.ACL_TOKEN_SET, {"token": token}
+                )
+                secret = token["secret_id"]
+            out["config"]["acl"]["tokens"] = {"agent": secret}
+        # TLS identity, exactly the auto-encrypt shape.
+        ca = await self.server.connect_ca()
+        leaf = ca.sign_leaf(node, kind="agent")
+        _, roots = self.server.store.ca_roots()
+        out["tls"] = {"leaf": leaf, "roots": roots}
+        return out
 
 
 class ACL(_Endpoint):
@@ -1499,10 +1708,7 @@ class Subscribe(_Endpoint):
 
 
 def build_endpoints(server: "Server") -> dict[str, _Endpoint]:
-    """The registry (server_oss.go:8-23).  ``ConnectCA``,
-    ``DiscoveryChain``, ``AutoEncrypt`` and ``AutoConfig`` come with
-    Connect's CA and compiler: until then a call to one gets the RPC
-    server's ``rpc: can't find method``."""
+    """The registry (server_oss.go:8-23)."""
     return {
         "Status": Status(server),
         "Catalog": Catalog(server),
@@ -1516,8 +1722,12 @@ def build_endpoints(server: "Server") -> dict[str, _Endpoint]:
         "Internal": Internal(server),
         "Operator": Operator(server),
         "ACL": ACL(server),
+        "AutoEncrypt": AutoEncrypt(server),
+        "ConnectCA": ConnectCA(server),
         "Intention": Intention(server),
         "Snapshot": Snapshot(server),
         "Subscribe": Subscribe(server),
+        "DiscoveryChain": DiscoveryChain(server),
         "FederationState": FederationState(server),
+        "AutoConfig": AutoConfig(server),
     }

@@ -1,8 +1,6 @@
 """The HTTP API: ``/v1/...`` endpoints over a hand-rolled asyncio
 HTTP/1.1 server (no web framework in the image); the port's copy of
-``consul_tpu/agent/http.py``.  The routes that reach Connect's CA, the
-discovery chain or the xDS export answer an error until Connect is
-ported.
+``consul_tpu/agent/http.py``.
 
 Equivalent of ``agent/http.go`` + the ``agent/*_endpoint.go`` handlers
 registered in ``http_register.go:1-125``.  Behaviors kept from the
@@ -47,8 +45,6 @@ from consul_tpu_torch.telemetry import metrics
 from consul_tpu_torch.version import __version__
 
 log = logging.getLogger("consul_tpu_torch.http")
-
-XDS_NOT_PORTED = "the xDS export is not ported yet (it comes with Connect)"
 
 _STATUS_TEXT = {200: "OK", 307: "Temporary Redirect",
                 400: "Bad Request", 403: "Forbidden",
@@ -1511,9 +1507,23 @@ class HTTPApi:
         """GET /v1/agent/connect/proxy/:proxy_id/xds?index=N&wait=30s —
         the ADS-shaped export of the same snapshot (agent/xds/server.go
         re-designed as a blocking JSON feed; each resource family keyed
-        by its v2 type URL).  The export (``connect/xds.py``) comes with
-        Connect: until then the route answers 500."""
-        return HTTPResponse(500, {"error": XDS_NOT_PORTED})
+        by its v2 type URL)."""
+        from consul_tpu_torch.connect import xds as xds_mod
+
+        pid = m.group("pid")
+        out = await self._proxy_snapshot(req, pid)
+        if out is None:
+            return HTTPResponse(404, {"error": f"unknown proxy {pid!r}"})
+        version, snap = out
+        public_port = int(req.query.get("port", 0) or 0)
+        ads = xds_mod.ads_snapshot(snap, version, public_port=public_port)
+        # The whole response is an Envoy-shaped wire structure
+        # (DiscoveryResponse-style), not our struct fields — ship it
+        # byte-exact, no camelization anywhere in the tree.
+        return HTTPResponse(
+            200, _raw_tree(ads),
+            headers={"X-Consul-Index": str(version)},
+        )
 
     # -- keyring -------------------------------------------------------------
 
@@ -1779,6 +1789,17 @@ class HTTPApi:
 
 
 _CAMEL_SPLIT = re.compile(r"(?<=[a-z0-9])(?=[A-Z])|(?<=[A-Z])(?=[A-Z][a-z])")
+
+
+def _raw_tree(obj: Any) -> Any:
+    """Recursively mark every dict as KeyedMap so camelize ships the
+    structure byte-exact (Envoy-shaped xDS resources use their own
+    snake_case wire names)."""
+    if isinstance(obj, dict):
+        return KeyedMap({k: _raw_tree(v) for k, v in obj.items()})
+    if isinstance(obj, list):
+        return [_raw_tree(v) for v in obj]
+    return obj
 
 
 def _shield_claim_keys(method: dict) -> dict:

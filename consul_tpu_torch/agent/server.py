@@ -1,6 +1,5 @@
 """The Server: raft quorum member owning the replicated catalog; the
-port's copy of ``consul_tpu/agent/server.py`` (without ``connect_ca``,
-which comes with Connect's CA).
+port's copy of ``consul_tpu/agent/server.py``.
 
 Equivalent of ``agent/consul/server.go`` + ``leader.go`` (SURVEY.md
 §2.2): owns the raft node, FSM, state store, LAN serf pool, the RPC
@@ -260,6 +259,10 @@ class Server:
         )
 
         self.raft: Optional[RaftNode] = None
+        # Built-in Connect CA, created lazily on the leader (the private
+        # key never leaves it; the root record replicates via raft).
+        self._connect_ca = None
+        self._connect_ca_lock = asyncio.Lock()
         self._bootstrap_disabled = False
         self._bootstrapping = False
         self._leader_tasks: list[asyncio.Task] = []
@@ -606,6 +609,30 @@ class Server:
         if isinstance(result, dict) and "error" in result and len(result) == 1:
             raise RPCError(result["error"])
         return result
+
+    async def connect_ca(self):
+        """The leader's signing authority (leader_connect.go
+        initializeCA): first use generates a root and replicates its
+        record.  A failover leader mints a fresh root (rotation without
+        cross-signing); old roots stay stored so outstanding leaves
+        verify until expiry."""
+        async with self._connect_ca_lock:  # single-flight initialization
+            if self._connect_ca is None:
+                from consul_tpu_torch.connect import BuiltinCA
+
+                _, roots = self.store.ca_roots()
+                trust = next(
+                    (r.get("trust_domain") for r in roots
+                     if r.get("trust_domain")),
+                    None,
+                )
+                ca = BuiltinCA(self.config.datacenter, trust_domain=trust)
+                root = ca.generate_root()
+                await self.raft_apply(
+                    MessageType.CONNECT_CA, {"op": "set-root", "root": root}
+                )
+                self._connect_ca = ca
+            return self._connect_ca
 
     async def consistent_barrier(self) -> None:
         """Leader linearizability fence for require_consistent reads

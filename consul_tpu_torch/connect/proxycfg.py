@@ -1,7 +1,5 @@
 """Per-proxy config-snapshot manager: the mesh control→data seam; the
-port's copy of ``consul_tpu/connect/proxycfg.py``.  Its snapshots need
-Connect's CA, which is not ported yet: a proxy whose assembly fails is
-reported to every reader, never left waiting.
+port's copy of ``consul_tpu/connect/proxycfg.py``.
 
 Re-design of ``agent/proxycfg/manager.go:37`` + ``state.go``: for every
 connect-proxy service registered with the local agent, a state machine
@@ -76,8 +74,6 @@ class _ProxyState:
         self._task: Optional[asyncio.Task] = None
         self._leaf: Optional[dict] = None
         self._health_watched: set[str] = set()
-        # The last assembly's failure, cleared by the next success.
-        self.error: Optional[Exception] = None
 
     # -- watch plumbing -------------------------------------------------
 
@@ -107,11 +103,8 @@ class _ProxyState:
                 await self._assemble()
             except asyncio.CancelledError:
                 raise
-            except Exception as e:  # noqa: BLE001 - keep the proxy served
+            except Exception:  # noqa: BLE001 - keep the proxy served
                 log.exception("proxycfg %s: assembly failed", self.proxy_id)
-                self.error = e
-                self.changed.set()
-                self.changed = asyncio.Event()
                 await asyncio.sleep(0.5)
                 continue
             # Wait for any watched source to change (coalesce a burst).
@@ -201,7 +194,6 @@ class _ProxyState:
             }
 
         self.version += 1
-        self.error = None
         self.snapshot = {
             "proxy_id": self.proxy_id,
             "destination_service": self.destination,
@@ -316,8 +308,7 @@ class ProxyConfigManager:
                    timeout: float = 300.0) -> Optional[tuple[int, dict]]:
         """Blocking-query shape over snapshot versions (the xDS stream
         stand-in): returns as soon as version > min_version, or the
-        current snapshot at timeout.  A proxy that has no snapshot
-        because its assembly failed raises ``RuntimeError``."""
+        current snapshot at timeout."""
         deadline = asyncio.get_running_loop().time() + timeout
         while True:
             state = self._states.get(proxy_id)
@@ -329,9 +320,6 @@ class ProxyConfigManager:
             ev = state.changed
             if state.snapshot is not None and state.version > min_version:
                 return state.version, state.snapshot
-            if state.snapshot is None and state.error is not None:
-                raise RuntimeError(
-                    f"proxy {proxy_id!r} has no config: {state.error}")
             remaining = deadline - asyncio.get_running_loop().time()
             if remaining <= 0:
                 return (state.version, state.snapshot) \

@@ -7,10 +7,6 @@ beside the JAX package's, on the CPU.
   ``tests/test_federation.py``, ``tests/test_realsocket_agent.py`` and
   ``test_segment_http_surface`` of ``tests/test_cluster_agents.py`` and the
   HTTP case of ``tests/test_multidc_host.py``.
-  Left out, because they need what is not ported yet: the Connect CA
-  watch case and the API client's watch parser of
-  ``test_realsocket_agent.py``, and ``AutoEncrypt.Sign`` of
-  ``test_acl.py``.
 * A one-server datacenter of each package with ACLs on gets the same
   seeded stream of HTTP requests over the ported routes, errors and
   denied requests among them.  Status, the ``X-Consul-*`` headers and
@@ -21,7 +17,6 @@ beside the JAX package's, on the CPU.
   in its ``pool`` segment and one client ``Agent``: after the crash the
   client's ``/v1/health/state/critical`` and its DNS answers for the pool's
   members agree between the packages.
-* What waits for Connect fails loudly on the port.
 """
 
 import asyncio
@@ -79,17 +74,9 @@ PACKAGES = {
 # the reference's scenarios
 # ---------------------------------------------------------------------------
 
-NOT_PORTED = {
-    "TestNewWatchTypes.test_connect_roots_leaf_and_agent_service_watches",
-    "test_unknown_watch_type_rejected",
-    "TestHardenedSurfaces.test_auto_encrypt_sign_requires_node_write",
-}
-
-
 def _is_http(qualname, fn) -> bool:
     src = inspect.getsource(fn)
-    return ("http_call" in src or "acl_stack" in src) and \
-        qualname not in NOT_PORTED
+    return "http_call" in src or "acl_stack" in src
 
 
 CASES = (
@@ -97,8 +84,7 @@ CASES = (
     + reference_cases("test_acl", _is_http)
     + reference_cases("test_federation", lambda q, fn: q.startswith(
         "TestFederationHTTP."))
-    + reference_cases("test_realsocket_agent",
-                      lambda q, fn: q not in NOT_PORTED)
+    + reference_cases("test_realsocket_agent")
     + reference_cases("test_cluster_agents", lambda q, fn: q.endswith(
         ".test_segment_http_surface"))
     + reference_cases("test_multidc_host", _is_http)
@@ -112,13 +98,13 @@ def test_reference_scenario(case, package, request):
 
 
 def test_reference_cases_found():
-    """21 HTTP/DNS, 15 ACL-over-HTTP, 1 federation, 2 real-socket, 1
+    """21 HTTP/DNS, 16 ACL-over-HTTP, 1 federation, 4 real-socket, 1
     segment and 1 cross-datacenter scenario."""
     counts = {}
     for name, _ in CASES:
         counts[name] = counts.get(name, 0) + 1
-    assert counts == {"test_http_dns": 21, "test_acl": 15,
-                      "test_federation": 1, "test_realsocket_agent": 2,
+    assert counts == {"test_http_dns": 21, "test_acl": 16,
+                      "test_federation": 1, "test_realsocket_agent": 4,
                       "test_cluster_agents": 1, "test_multidc_host": 1}
 
 
@@ -815,75 +801,3 @@ def test_pool_client_agent_equal(one_torch_thread):
     assert t_dns_raw == j_dns_raw
     rcodes = [t_dns.parse_response(raw)[1] for raw in t_dns_raw]
     assert rcodes == [0] * (len(POOL_NAMES) - 1) + [3]
-
-
-# ---------------------------------------------------------------------------
-# what waits for Connect
-# ---------------------------------------------------------------------------
-
-
-async def _connect_routes(pkg):
-    net = pkg.InMemoryNetwork()
-    agent = pkg.Agent(pkg.AgentConfig(node_name="s0", bootstrap_expect=1,
-                                      **CADENCE),
-                      gossip_transport=net.new_transport("s0:gossip"),
-                      rpc_transport=net.new_transport("s0:rpc"))
-    await agent.start()
-    await wait_for_leader([agent.delegate])
-    api = pkg.HTTPApi(agent)
-    addr = await api.start()
-    try:
-        out = {}
-        for method, path in (
-                ("GET", "/v1/connect/ca/roots"),
-                ("GET", "/v1/agent/connect/ca/roots"),
-                ("GET", "/v1/agent/connect/ca/leaf/web"),
-                ("PUT", "/v1/connect/ca/rotate"),
-                ("GET", "/v1/discovery-chain/web")):
-            status, _, raw = await http(addr, method, path)
-            out[path] = (status, json.loads(raw))
-        body = json.dumps({"Name": "web-proxy", "Kind": "connect-proxy",
-                           "Port": 21000, "Proxy": {
-                               "DestinationServiceName": "web"}})
-        status, _, _ = await http(addr, "PUT", "/v1/agent/service/register",
-                                  body.encode())
-        assert status == 200
-        for path in ("/v1/agent/connect/proxy/web-proxy?wait=5s",
-                     "/v1/agent/connect/proxy/web-proxy/xds?wait=5s"):
-            status, _, raw = await http(addr, "GET", path)
-            out[path.partition("?")[0]] = (status, json.loads(raw))
-        return out
-    finally:
-        await api.stop()
-        await agent.shutdown()
-
-
-def test_connect_routes_fail_loudly():
-    """Connect's CA, the discovery chain and the xDS export are not ported:
-    every route that reaches them answers an error, never an empty 200."""
-    out = asyncio.run(asyncio.wait_for(
-        _connect_routes(PACKAGES["torch"]), 60))
-    missing = "rpc: can't find method "
-    assert out["/v1/connect/ca/roots"] == (
-        500, {"Error": missing + "ConnectCA.Roots"})
-    assert out["/v1/agent/connect/ca/roots"] == (
-        500, {"Error": missing + "ConnectCA.Roots"})
-    assert out["/v1/agent/connect/ca/leaf/web"] == (
-        500, {"Error": missing + "ConnectCA.Roots"})
-    assert out["/v1/connect/ca/rotate"] == (
-        500, {"Error": missing + "ConnectCA.Rotate"})
-    assert out["/v1/discovery-chain/web"] == (
-        500, {"Error": missing + "DiscoveryChain.Get"})
-    status, body = out["/v1/agent/connect/proxy/web-proxy"]
-    assert status == 500 and missing + "ConnectCA.Roots" in body["Error"]
-    assert out["/v1/agent/connect/proxy/web-proxy/xds"] == (
-        500, {"Error": t_http.XDS_NOT_PORTED})
-
-
-@pytest.mark.parametrize("knob", ["auto_encrypt", "auto_config_enabled"])
-def test_client_tls_bootstrap_refused(knob):
-    net = t_transport.InMemoryNetwork()
-    cfg = t_agent.AgentConfig(node_name="c0", server=False, **{knob: True})
-    with pytest.raises(NotImplementedError, match=f"{knob}= is not ported"):
-        t_agent.Agent(cfg, gossip_transport=net.new_transport("c0:gossip"),
-                      rpc_transport=net.new_transport("c0:rpc"))

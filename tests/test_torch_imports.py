@@ -59,7 +59,11 @@ MODULES = (
     "consul_tpu_torch.agent.config", "consul_tpu_torch.connect.proxycfg",
     "consul_tpu_torch.agent.agent", "consul_tpu_torch.agent.dns",
     "consul_tpu_torch.agent.monitor", "consul_tpu_torch.agent.ui",
-    "consul_tpu_torch.agent.http",
+    "consul_tpu_torch.agent.http", "consul_tpu_torch.connect.ca",
+    "consul_tpu_torch.connect.discoverychain", "consul_tpu_torch.connect.xds",
+    "consul_tpu_torch.connect.service", "consul_tpu_torch.connect.proxy",
+    "consul_tpu_torch.api", "consul_tpu_torch.api.client",
+    "consul_tpu_torch.api.watch", "consul_tpu_torch.bench_kv",
     "chip_smoke",
 )
 # The agent plane: the agent with its HTTP API and DNS, and the command
@@ -71,6 +75,11 @@ AGENT_MODULES = (
     "consul_tpu_torch.agent.agent", "consul_tpu_torch.agent.dns",
     "consul_tpu_torch.agent.monitor", "consul_tpu_torch.agent.ui",
     "consul_tpu_torch.agent.http", "consul_tpu_torch.cli",
+    "consul_tpu_torch.connect.ca", "consul_tpu_torch.connect.discoverychain",
+    "consul_tpu_torch.connect.xds", "consul_tpu_torch.connect.service",
+    "consul_tpu_torch.connect.proxy", "consul_tpu_torch.api",
+    "consul_tpu_torch.api.client", "consul_tpu_torch.api.watch",
+    "consul_tpu_torch.bench_kv",
 )
 # The host gossip plane: plain asyncio, no optional package at import time.
 HOST_MODULES = ("consul_tpu_torch.net", "consul_tpu_torch.eventing",
@@ -91,6 +100,20 @@ def test_every_port_module_is_checked():
         if m not in imported and m.rsplit(".", 1)[0] not in imported
     )
     assert not missing, f"not in MODULES: {missing}"
+
+
+def test_port_covers_the_reference():
+    """Every module of the JAX package has its counterpart in the port, but
+    the six of ``analysis/``, which lint jaxprs: a PyTorch program has
+    none."""
+    def modules(pkg):
+        return {p.relative_to(ROOT / pkg).with_suffix("").as_posix()
+                for p in (ROOT / pkg).rglob("*.py")}
+
+    missing = sorted(modules("consul_tpu") - modules("consul_tpu_torch"))
+    assert missing == ["analysis/__init__", "analysis/equivlint",
+                       "analysis/guards", "analysis/jaxlint",
+                       "analysis/rangelint", "analysis/tracelint"]
 
 
 def test_import_loads_no_jax():
