@@ -252,6 +252,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import os
 import subprocess
 import sys
 import time
@@ -4666,6 +4667,99 @@ LAUNCHES_PER_TICK = {
 LAUNCH_BAND = (0.75, 1.33)
 
 
+# jaxlint J6 beside the measured peaks: an estimate may not fall under
+# this share of the program's measured peak, and both must take the same
+# side of the memory gate.
+J6_FLOOR = 0.8
+ANALYSIS_TIMEOUT_S = 900.0
+
+
+def j6_estimates_main() -> int:
+    """In a process of its own (phase 14 starts it): jaxlint J6's peak of
+    each executable big program, cut as the phase cuts it, from one tick
+    traced on fake tensors, with the card's allocated bytes before and
+    after the traces; and rangelint's narrowing ledger at 10M nodes.
+    Prints one JSON line."""
+    import torch
+
+    from consul_tpu_torch.analysis.jaxlint import estimate_peak
+    from consul_tpu_torch.analysis.rangelint import narrowing_ledger
+    from consul_tpu_torch.sim.registry import jaxlint_registry
+
+    dev = torch.device("cuda", 0)
+    big = jaxlint_registry(include=("big",))
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    estimates = {
+        name: estimate_peak(cut_program(prog, BIG_STEPS).traces())
+        .chip_bytes
+        for name, prog in big.items() if not prog.abstract_only}
+    traced_s = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    led = narrowing_ledger(big["sparse@1m"], 10_000_000)
+    print(json.dumps({
+        "estimates": estimates, "trace_s": traced_s,
+        "allocated_before": before, "allocated_after": after,
+        "ledger_s": time.perf_counter() - t0,
+        "ledger_findings": [f.format() for f in led.findings],
+        "ledger": {c.plane: [c.dtype, c.lo, c.hi, c.minimal]
+                   for c in led.certificates}}))
+    return 0
+
+
+def _start_analysis() -> tuple:
+    """``cli check --set small`` and the J6 estimates, each in a process
+    of its own, started beside phase 14's card work."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    check = subprocess.Popen(
+        [sys.executable, "-m", "consul_tpu_torch.cli", "check", "--set",
+         "small"], cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    est = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.j6_estimates_main())"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return check, est
+
+
+def _finish(proc, what: str) -> str:
+    try:
+        out, err = proc.communicate(timeout=ANALYSIS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0,
+          f"{what} exited {proc.returncode}: {err[-3000:]}{out[-2000:]}")
+    return out, err
+
+
+def j6_against_measured(estimates: dict, profiles: list, budget: int,
+                        card: str) -> None:
+    """Each executed big program's J6 estimate beside its measured peak:
+    the ratio, the gate decision of each, both logged; the estimate may
+    not fall under J6_FLOOR of the peak nor take the other side of the
+    gate."""
+    for p in profiles:
+        if p.peak_bytes is None:
+            continue
+        est = estimates[p.name]
+        ratio = est / p.peak_bytes
+        log("j6 " + json.dumps({
+            "program": p.name, "estimate_bytes": est,
+            "peak_bytes": p.peak_bytes, "ratio": ratio,
+            "estimate_fits": est <= budget,
+            "peak_fits": p.peak_bytes <= budget, "gate_bytes": budget,
+            "card": card}))
+        check((est <= budget) == (p.peak_bytes <= budget),
+              f"{p.name}: J6 {est} and the measured {p.peak_bytes} take "
+              f"different sides of the {budget}-byte gate")
+        check(ratio >= J6_FLOOR,
+              f"{p.name}: J6 {est} under {J6_FLOOR} x the measured peak "
+              f"{p.peak_bytes}")
+
+
 def cut_program(prog, ticks: int):
     """``prog`` cut to its first ``ticks`` ticks, on the same arguments
     (``prog`` itself where the study is no longer)."""
@@ -4786,6 +4880,9 @@ def phase_registry(dev, card: str) -> list:
 
     t_phase = time.perf_counter()
     free_card(dev)
+    # The static analyses run on the host beside the card work: cli check
+    # over the small set, and J6 of the big set with the 10M ledger.
+    check_proc, est_proc = _start_analysis()
     small = jaxlint_registry(include=("small",))
     big = {name: cut_program(prog, BIG_STEPS)
            for name, prog in jaxlint_registry(include=("big",)).items()}
@@ -4799,21 +4896,31 @@ def phase_registry(dev, card: str) -> list:
         log(f"registry {name}: state_bytes {predicted[name]} "
             f"({predicted[name] / 2 ** 30:.3f} GiB) before executing")
 
-    # The abstract-only entry is sized and never run: nothing allocated.
+    # The abstract-only entry is sized and never run: nothing allocated,
+    # its J6 peak traced on fake tensors beside its state bytes.
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
     (row,) = profile_registry({"sparse@10m": big["sparse@10m"]},
                               execute=True, device=dev)
-    check(torch.cuda.max_memory_allocated(dev) == before,
+    check(torch.cuda.max_memory_allocated(dev) == before
+          and torch.cuda.memory_allocated(dev) == before,
           "sparse@10m allocated on the card")
     check(row.execute_skipped == "abstract-only registry entry "
           "(never compiled/executed)" and row.execute_s is None,
           f"sparse@10m: {row}")
+    log("j6 " + json.dumps({
+        "program": "sparse@10m", "estimate_bytes": row.j6_peak_bytes,
+        "argument_bytes": row.argument_bytes, "trace_s": row.trace_s,
+        "gate_bytes": memory_budget(dev),
+        "estimate_fits": row.j6_peak_bytes <= memory_budget(dev),
+        "card": card}))
 
     budget = memory_budget(dev)
     t_big = time.perf_counter()
-    profiles = profile_registry(big, execute=True, device=dev,
-                                window=PROFILE_WINDOW)
+    # The abstract-only entry was sized above (its row stands).
+    profiles = [row] + profile_registry(
+        {n: p for n, p in big.items() if not p.abstract_only},
+        execute=True, device=dev, window=PROFILE_WINDOW)
     for p in profiles:
         if big[p.name].abstract_only:
             check(p.execute_s is None and p.peak_bytes is None,
@@ -4857,6 +4964,22 @@ def phase_registry(dev, card: str) -> list:
             "card": card}))
     log(f"registry big set profiled in {time.perf_counter() - t_big:.1f} s")
 
+    t_wait = time.perf_counter()
+    out, _ = _finish(est_proc, "the J6 estimates")
+    est = json.loads(out.strip().splitlines()[-1])
+    check(est["allocated_after"] == est["allocated_before"],
+          f"tracing the big set allocated on the card: {est}")
+    check(est["ledger_findings"] == [],
+          f"10M narrowing ledger: {est['ledger_findings']}")
+    log("j6 " + json.dumps({
+        "trace_s": est["trace_s"], "ledger_s": est["ledger_s"],
+        "allocated_before": est["allocated_before"],
+        "allocated_after": est["allocated_after"],
+        "ledger_10m": est["ledger"], "card": card}))
+    j6_against_measured(est["estimates"], profiles, budget, card)
+    log(f"J6 estimates joined after a wait of "
+        f"{time.perf_counter() - t_wait:.1f} s")
+
     # cli profile in a process of its own, with a Chrome trace, beside the
     # ladder (whose walls are not measurements).
     t_cli = time.perf_counter()
@@ -4884,6 +5007,11 @@ def phase_registry(dev, card: str) -> list:
     log(f"cli profile: {len(cli_rows)} programs executed, the Chrome trace "
         f"holds {kernels} kernel events, in "
         f"{time.perf_counter() - t_cli:.1f} s")
+
+    t_wait = time.perf_counter()
+    out, err = _finish(check_proc, "cli check --set small")
+    log(f"cli check --set small: {err.strip().splitlines()[-1]} (joined "
+        f"after a wait of {time.perf_counter() - t_wait:.1f} s)")
 
     rows = phase_ring_paths(dev, [(path, shape)
                                   for path, shape, _ in ring_rows])

@@ -1,10 +1,7 @@
 """The command line: ``python -m consul_tpu_torch.cli``.
 
-The port of ``consul_tpu/cli.py`` but its static-analysis commands
-(``lint``, ``jaxlint``, ``rangelint``, ``equivlint``, ``check``, which
-read jaxprs and have no counterpart in a PyTorch program), with their
-flags, their checks before anything runs, their output and their exit
-codes:
+The port of ``consul_tpu/cli.py``, with its flags, its checks before
+anything runs, its output and its exit codes:
 
     python -m consul_tpu_torch.cli sim --list
     python -m consul_tpu_torch.cli sim event100k --devices 8 \
@@ -15,6 +12,14 @@ codes:
     python -m consul_tpu_torch.cli members -http-addr 127.0.0.1:8500
     python -m consul_tpu_torch.cli kv put web/config '{"port": 80}'
     python -m consul_tpu_torch.cli intention create web db -deny
+    python -m consul_tpu_torch.cli check --set small
+
+The static-analysis commands (``lint``, ``jaxlint``, ``rangelint``,
+``equivlint``, ``check``; ``consul_tpu_torch/analysis``) read the ATen
+graph of one tick of each registered program on fake tensors: they
+allocate nothing and need no card (``equivlint``'s witnesses run on the
+card when there is one, on the CPU with ``--witness-device cpu``), and
+exit nonzero on any finding.
 
 ``--devices D`` lays the study over D logical shards of one card
 (``parallel.mesh_for``).  ``--device`` (the one flag the reference lacks)
@@ -334,12 +339,263 @@ def build_parser() -> argparse.ArgumentParser:
                     default="text")
     _add_device(sp)
 
+    _add_analysis(sub)
+
     # Like the reference, version tolerates (and ignores) the client flags.
     sp = sub.add_parser("version", help="print the CLI version")
     sp.set_defaults(fn=cmd_version)
     sp.add_argument("-http-addr", default=DEFAULT_HTTP)
     sp.add_argument("-token", default="")
     return p
+
+
+def _add_analysis(sub) -> None:
+    """The static-analysis commands, with the reference's options (and
+    ``--witness-device``, where equivlint's witnesses run)."""
+    sp = sub.add_parser(
+        "lint", help="tracelint: static analysis of the simulation plane")
+    sp.set_defaults(fn=cmd_lint)
+    sp.add_argument("paths", nargs="*",
+                    help="files or directories (default: the package's "
+                         "models/ sim/ ops/ ...)")
+    sp.add_argument("--rules", default="",
+                    help="comma-separated rule ids, e.g. R1,R3 "
+                         "(default: all)")
+    sp.add_argument("--list-rules", action="store_true",
+                    dest="list_rules", help="enumerate rules and exit")
+    sp.add_argument("--format", choices=["text", "json"], default="text",
+                    dest="format",
+                    help="json: machine-readable violations object")
+
+    sp = sub.add_parser(
+        "jaxlint", help="graph-level analysis of one tick of each "
+                        "registered program (rules J1-J6 + the memory "
+                        "budget gate)")
+    sp.set_defaults(fn=cmd_jaxlint)
+    sp.add_argument("--rules", default="",
+                    help="comma-separated rule ids, e.g. J1,J6 "
+                         "(default: all)")
+    sp.add_argument("--list-rules", action="store_true",
+                    dest="list_rules", help="enumerate rules and exit")
+    sp.add_argument("--budget-gb", type=float, default=None,
+                    dest="budget_gb",
+                    help="memory budget for J6 (default: 0.9 of the card, "
+                         "or of an H100 80GB HBM3 without one)")
+    sp.add_argument("--format", choices=["text", "json"], default="text",
+                    dest="format",
+                    help="json: machine-readable findings object")
+    sp.add_argument("--set", choices=["small", "big", "all"],
+                    default="all", dest="which",
+                    help="registry slice: small-n configs, the 1M-node "
+                         "configs, or both (default)")
+    sp.add_argument("--module", default="",
+                    help="lint JAXLINT_PROGRAMS from a Python file "
+                         "instead of the engine registry")
+
+    sp = sub.add_parser(
+        "rangelint",
+        help="interval-domain abstract interpretation over the "
+             "registered programs (rules J7-J9 + narrowing "
+             "certificates)")
+    sp.set_defaults(fn=cmd_rangelint)
+    sp.add_argument("--rules", default="",
+                    help="comma-separated rule ids, e.g. J7 "
+                         "(default: all)")
+    sp.add_argument("--list-rules", action="store_true",
+                    dest="list_rules", help="enumerate rules and exit")
+    sp.add_argument("--format", choices=["text", "json"], default="text",
+                    dest="format")
+    sp.add_argument("--set", choices=["small", "big", "all"],
+                    default="all", dest="which")
+    sp.add_argument("--at-n", type=int, default=0, dest="at_n",
+                    help="also read the narrowing ledger at this "
+                         "population via the registry scale hooks "
+                         "(e.g. 10000000)")
+
+    sp = sub.add_parser(
+        "equivlint",
+        help="exactness-ladder prover + golden fingerprint gate + the "
+             "CUDA kernels' DMA discipline (rules E1-E3, P1-P3)")
+    sp.set_defaults(fn=cmd_equivlint)
+    sp.add_argument("--list-rules", action="store_true",
+                    dest="list_rules", help="enumerate rules and exit")
+    sp.add_argument("--format", choices=["text", "json"], default="text",
+                    dest="format")
+    sp.add_argument("--set", choices=["small", "big", "all"],
+                    default="all", dest="which",
+                    help="registry slice (default: both tiers — the "
+                         "golden file covers small AND big)")
+    sp.add_argument("--update-golden", action="store_true",
+                    dest="update_golden",
+                    help="regenerate tests/golden/torch_programs.json from "
+                         "the live fingerprints (merge: entries outside "
+                         "--set are kept)")
+    sp.add_argument("--golden", default="",
+                    help="alternate golden snapshot path")
+    sp.add_argument("--no-witness", action="store_true",
+                    dest="no_witness",
+                    help="structural proofs only: would-be witness "
+                         "executions report SKIPPED instead of running")
+    sp.add_argument("--flops", action="store_true",
+                    help="accepted for the reference's interface (the "
+                         "port records no flops)")
+    sp.add_argument("--module", default="",
+                    help="lint EQUIVLINT_PROGRAMS (kernel sources) from a "
+                         "Python file instead of the registry")
+    _add_witness_device(sp)
+
+    sp = sub.add_parser(
+        "check",
+        help="the umbrella pass: tracelint + jaxlint + rangelint + "
+             "equivlint in one run, each registry program traced once, "
+             "merged --format json, shared exit-code contract")
+    sp.set_defaults(fn=cmd_check)
+    sp.add_argument("--format", choices=["text", "json"], default="text",
+                    dest="format")
+    sp.add_argument("--set", choices=["small", "big", "all"],
+                    default="small", dest="which",
+                    help="registry slice for the graph passes (default "
+                         "small; big adds the 1M configs)")
+    sp.add_argument("--budget-gb", type=float, default=None,
+                    dest="budget_gb",
+                    help="memory budget for jaxlint J6 (default: 0.9 of "
+                         "the card, or of an H100 80GB HBM3)")
+    sp.add_argument("--changed", action="store_true",
+                    help="git-diff-aware pre-commit mode: lint/prove only "
+                         "programs whose family sources changed vs HEAD "
+                         "(core-plane edits widen to the full registry)")
+    sp.add_argument("--no-witness", action="store_true",
+                    dest="no_witness",
+                    help="equivlint structural proofs only (skip witness "
+                         "executions)")
+    _add_witness_device(sp)
+
+
+def _add_witness_device(sp) -> None:
+    sp.add_argument("--witness-device", default=None, dest="witness_device",
+                    choices=("cuda", "cpu"),
+                    help="where equivlint's witnesses run (default: the "
+                         "card; without one they are SKIPPED unless cpu "
+                         "is asked for)")
+
+
+def cmd_lint(args) -> int:
+    """tracelint over the simulation plane: exits nonzero on violations,
+    printing ``file:line:col rule message`` lines.  Pure AST work."""
+    from consul_tpu_torch.analysis.tracelint import main as tracelint_main
+
+    argv = list(args.paths)
+    if args.list_rules:
+        argv.append("--list-rules")
+    if args.rules:
+        argv.extend(["--rules", args.rules])
+    if args.format != "text":
+        argv.extend(["--format", args.format])
+    return tracelint_main(argv)
+
+
+def cmd_jaxlint(args) -> int:
+    """J1-J6 over one tick of each registered program (nothing
+    allocated); exits nonzero on any finding."""
+    from consul_tpu_torch.analysis.jaxlint import main as jaxlint_main
+
+    argv = []
+    if args.list_rules:
+        argv.append("--list-rules")
+    if args.rules:
+        argv.extend(["--rules", args.rules])
+    if args.budget_gb is not None:
+        argv.extend(["--budget-gb", str(args.budget_gb)])
+    if args.format != "text":
+        argv.extend(["--format", args.format])
+    if args.which != "all":
+        argv.extend(["--set", args.which])
+    if args.module:
+        argv.extend(["--module", args.module])
+    return jaxlint_main(argv)
+
+
+def cmd_rangelint(args) -> int:
+    """J7-J9 and the narrowing certificates; exits nonzero on any
+    finding."""
+    from consul_tpu_torch.analysis.rangelint import main as rangelint_main
+
+    argv = []
+    if args.list_rules:
+        argv.append("--list-rules")
+    if args.rules:
+        argv.extend(["--rules", args.rules])
+    if args.format != "text":
+        argv.extend(["--format", args.format])
+    if args.which != "all":
+        argv.extend(["--set", args.which])
+    if args.at_n:
+        argv.extend(["--at-n", str(args.at_n)])
+    return rangelint_main(argv)
+
+
+def cmd_equivlint(args) -> int:
+    """E1 over EQUIV_PAIRS, the E2/E3 golden gate, P1-P3 over
+    ``csrc/*.cu``; exits nonzero on any FAILED rung, golden diff or
+    kernel finding."""
+    from consul_tpu_torch.analysis.equivlint import main as equivlint_main
+
+    argv = []
+    if args.list_rules:
+        argv.append("--list-rules")
+    if args.format != "text":
+        argv.extend(["--format", args.format])
+    argv.extend(["--set", "small,big" if args.which == "all"
+                 else args.which])
+    if args.update_golden:
+        argv.append("--update-golden")
+    if args.golden:
+        argv.extend(["--golden", args.golden])
+    if args.no_witness:
+        argv.append("--no-witness")
+    if args.flops:
+        argv.append("--flops")
+    if args.module:
+        argv.extend(["--module", args.module])
+    if args.witness_device:
+        argv.extend(["--witness-device", args.witness_device])
+    return equivlint_main(argv)
+
+
+def cmd_check(args) -> int:
+    """tracelint + jaxlint + rangelint + equivlint in one pass (each
+    registry program traced once), merged ``--format json``, 0 clean and
+    1 on any finding."""
+    from consul_tpu_torch.analysis import run_check
+
+    include = ("small", "big") if args.which == "all" else (args.which,)
+    out = run_check(include=include, budget_gb=args.budget_gb,
+                    changed=args.changed, witness=not args.no_witness,
+                    witness_device=args.witness_device)
+    if args.format == "json":
+        print(json.dumps(out))
+        return 0 if out["clean"] else 1
+    for v in out["tracelint"]["violations"]:
+        print(f"{v['path']}:{v['line']}:{v['col']} {v['rule']} "
+              f"{v['message']}")
+    for key in ("jaxlint", "rangelint", "equivlint"):
+        for f in out[key]["findings"]:
+            where = f["where"] or "<program>"
+            print(f"{f['program']}: {where} {f['rule']} {f['message']}")
+    el = out["equivlint"]
+    n_bad = (len(out["tracelint"]["violations"])
+             + len(out["jaxlint"]["findings"])
+             + len(out["rangelint"]["findings"]) + len(el["findings"]))
+    walls = ", ".join(f"{k} {v}s" for k, v in out["wall_s"].items())
+    n_certs = sum(1 for cs in out["rangelint"]["certificates"].values()
+                  for c in cs if c["saved_bytes"] > 0)
+    print(f"check: {'clean' if out['clean'] else f'{n_bad} finding(s)'} "
+          f"({out['tracelint']['files']} file(s), "
+          f"{out['jaxlint']['programs']} program(s), {n_certs} narrowing "
+          f"certificate(s), {el['proved']} proved + {el['witnessed']} "
+          f"witnessed of {el['pairs']} pair(s), {el['golden_diffs']} "
+          f"golden diff(s); {walls})", file=sys.stderr)
+    return 0 if out["clean"] else 1
 
 
 def build_runtime(args):

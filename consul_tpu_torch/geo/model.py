@@ -258,12 +258,12 @@ class GeoConstants(NamedTuple):
 def geo_constants(cfg: GeoConfig, device) -> GeoConstants:
     dev = torch.device(device)
     S = cfg.segments
-    link = torch.arange(cfg.n_links, device=dev)
+    link = torch.arange(cfg.n_links, dtype=torch.int64, device=dev)
     src, dst = link // S, link % S
     return GeoConstants(
         lat=torch.tensor(cfg.latency_flat(), dtype=torch.int64).to(dev),
         link=link, src=src, dst=dst, cross=src != dst,
-        seg=torch.arange(cfg.n, device=dev) // cfg.seg_size,
+        seg=torch.arange(cfg.n, dtype=torch.int64, device=dev) // cfg.seg_size,
     )
 
 
@@ -271,7 +271,7 @@ def geo_init(cfg: GeoConfig, device=None) -> GeoState:
     dev = resolve_device(device)
     n, E, S, L = cfg.n, cfg.events, cfg.segments, cfg.wan_window
     origins = torch.tensor(cfg.event_origins, dtype=torch.int64).to(dev)
-    ev = torch.arange(E, device=dev)
+    ev = torch.arange(E, dtype=torch.int64, device=dev)
     knows = torch.zeros((n, E), dtype=torch.bool, device=dev)
     knows[origins, ev] = True
     tx_lan = torch.zeros((n, E), dtype=torch.int32, device=dev)
@@ -424,7 +424,7 @@ def _ring_slots(state: GeoState, t: torch.Tensor, lat: torch.Tensor,
     slot = (t.reshape(*t.shape, *([1] * lat.dim())) + lat) % L
     if not nb:
         return (slot,)
-    uni = torch.arange(t.numel(), device=t.device).view(
+    uni = torch.arange(t.numel(), dtype=torch.int64, device=t.device).view(
         *t.shape, *([1] * lat.dim()))
     return (uni, slot)
 
@@ -565,11 +565,13 @@ def geo_round(state: GeoState, key: torch.Tensor, cfg: GeoConfig,
 
     flat = torch.where(step.live, step.recv.long() * E + step.ev_slot, n * E)
     if nb:
-        base = torch.arange(state.tick.numel(), device=dev)
+        base = torch.arange(state.tick.numel(), dtype=torch.int64, device=dev)
         flat = flat + base.view(*state.tick.shape, 1, 1) * (n * E + 1)
     hits = torch.zeros((*state.tick.shape, n * E + 1), dtype=torch.bool,
                        device=dev)
-    hits.view(-1)[flat.reshape(-1)] = True
+    # Lost WAN messages are the model's loss_wan draw, not units the link
+    # census owes (GeoReport.accounting_ok counts admitted ones).
+    hits.view(-1)[flat.reshape(-1)] = True  # tracelint: disable=J9 (loss)
     got_wan = hits[..., :n * E].view(knows.shape) & ~knows
 
     new_knows, tx_lan = merge(knows, state.tx_lan, senders, got_lan | got_wan,

@@ -308,7 +308,8 @@ def _claim_one(slots: tuple, want: torch.Tensor, new_subj: torch.Tensor,
     deltas per universe."""
     slot_subj, key_m, since, conf, tx = slots
     dev = slot_subj.device
-    if amortize and not host_cond(torch.any(want)):
+    if amortize and not host_cond(  # tracelint: disable=R2 (a lax.cond)
+            torch.any(want)):
         zero = (device_scalar(0, torch.int32, dev) if want.dim() == 1
                 else torch.zeros(want.shape[:-1], dtype=torch.int32,
                                  device=dev))

@@ -385,8 +385,10 @@ def expire_suspicions(cfg: SwimConfig, t, timeout_ticks, view, inc_seen,
     """Suspicion timeout expiry -> DEAD at the suspicion's incarnation,
     broadcast deadMsg (state.go:1200-1215); returns the updated
     (view, suspect_since, tx_suspect, tx_dead, dead_era)."""
-    # int32 difference: with suspect_since == NEVER it is masked below.
-    elapsed = (col(t) - suspect_since).to(torch.float32)
+    # int32 difference: with suspect_since == NEVER it wraps, and is masked
+    # below.
+    elapsed = (col(t)  # tracelint: disable=J7 (NEVER wraps, masked)
+               - suspect_since).to(torch.float32)
     expire = ((view == VIEW_SUSPECT) & (suspect_since != NEVER)
               & (elapsed >= timeout_ticks))
     return (

@@ -70,6 +70,9 @@ class ProgramProfile:
     profiled_steps: Optional[int] = None
     peak_bytes: Optional[int] = None
     device: str = ""
+    # jaxlint J6's estimate of the peak (analysis/jaxlint.estimate_peak):
+    # set for an abstract-only entry, which is sized and never run.
+    j6_peak_bytes: Optional[int] = None
 
     def to_json(self) -> dict:
         d = dataclasses.asdict(self)
@@ -229,15 +232,21 @@ def profile_registry(programs: dict, execute: bool = False,
     remaining entries are sized but not run, LOUDLY
     (``execute_skipped``).  ``deadline`` (a ``time.monotonic()`` value)
     skips everything once passed.  An abstract-only entry
-    (``sparse@10m``) is sized and never run."""
+    (``sparse@10m``) is sized and never run: it reports its arguments'
+    bytes and jaxlint J6's peak estimate (one tick traced on fake
+    tensors; nothing allocated)."""
     profiles = []
     exec_spent = 0.0
     for prog in programs.values():
         if prog.abstract_only:
+            from consul_tpu_torch.analysis.jaxlint import estimate_peak
+
+            t0 = time.perf_counter()
+            j6 = estimate_peak(prog.traces()).chip_bytes
             profiles.append(ProgramProfile(
                 name=prog.name, entrypoint=prog.entrypoint, n=prog.n,
-                trace_s=0.0, compile_s=0.0,
-                argument_bytes=prog.state_bytes(),
+                trace_s=time.perf_counter() - t0, compile_s=0.0,
+                argument_bytes=prog.state_bytes(), j6_peak_bytes=j6,
                 execute_skipped="abstract-only registry entry "
                                 "(never compiled/executed)",
             ))

@@ -425,7 +425,7 @@ def shard_keep(entrypoint: str, shards: int, device) -> torch.Tensor:
     shard 0's "rep" columns.  Built once a study: it copies the static
     mask from the host."""
     mask = torch.tensor(sum_mask(entrypoint), dtype=torch.bool).to(device)
-    first = torch.arange(shards, device=device) == 0
+    first = torch.arange(shards, dtype=torch.int64, device=device) == 0
     return mask[None, :] | first[:, None]
 
 

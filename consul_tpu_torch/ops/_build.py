@@ -29,6 +29,9 @@ _loaded: dict[str, ctypes.CDLL] = {}
 # nvcc's -Xptxas -v report per kernel source (registers, spills), kept for
 # chip_smoke.py to print.
 build_logs: dict[str, str] = {}
+# nvcc runs of this process by library file: the port's compile events,
+# which ``analysis.guards`` counts (one per key).
+compiles: dict[str, int] = {}
 
 
 def nvcc() -> str:
@@ -63,6 +66,7 @@ def build(name: str) -> Path:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     build_logs[name] = proc.stdout
+    compiles[lib.name] = compiles.get(lib.name, 0) + 1
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
     os.replace(tmp, lib)

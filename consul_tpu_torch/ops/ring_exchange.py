@@ -19,6 +19,13 @@ of the same launch.  Each launches the kernel for CUDA tensors and takes
 its plain version (:func:`ring_exchange_planes_plain`,
 :func:`ring_exchange_plain`) only for CPU tensors.  Both count their
 launches in ``ring_exchange.launches``.
+
+The planes exchange is one ``torch.library`` operator,
+``consul_tpu_torch::ring_exchange_planes``: its CUDA kernel is the ctypes
+launch above, its CPU kernel the plain version, and its fake kernel gives
+the inboxes' shape, so a traced tick (``analysis/graph.py``) holds the
+exchange as one opaque node, as the reference's jaxpr holds one
+``pallas_call``.
 """
 
 from __future__ import annotations
@@ -144,6 +151,50 @@ def _launch(src_ptrs, src_strides, out_ptrs, out_strides, u: int, d: int,
     ring_exchange.launches += 1
 
 
+def _inboxes(planes) -> torch.Tensor:
+    """The uninitialised ``[C, (U,) D, D*budget]`` int32 inboxes of
+    ``planes``."""
+    *lead, d, _, budget = planes[0].shape
+    return torch.empty((len(planes), *lead, d, d * budget),
+                       dtype=torch.int32, device=planes[0].device)
+
+
+def _ring_exchange_cuda(planes: list) -> torch.Tensor:
+    """The kernel: one launch for every universe and plane."""
+    p0 = planes[0]
+    *lead, d, _, budget = p0.shape
+    u = lead[0] if lead else 1
+    c = len(planes)
+    out = _inboxes(planes)
+    if budget and d and u:
+        base, size = out.data_ptr(), u * d * d * budget * 4
+        src_u = p0.stride(0) if lead else 0
+        _launch([p.data_ptr() for p in planes],
+                (src_u, *p0.stride()[-3:-1]),
+                [base + i * size for i in range(c)],
+                (d * d * budget, d * budget, budget), u, d, budget,
+                p0.device)
+    return out
+
+
+def _ring_exchange_cpu(planes: list) -> torch.Tensor:
+    out = _inboxes(planes)
+    for o, got in zip(out, ring_exchange_planes_plain(planes)):
+        o.copy_(got)
+    return out
+
+
+# The operator: registered with the dispatcher directly (a
+# ``torch.library.custom_op`` costs tens of microseconds a call more).
+_LIB = torch.library.Library("consul_tpu_torch", "DEF")
+_LIB.define("ring_exchange_planes(Tensor[] planes) -> Tensor")
+_LIB.impl("ring_exchange_planes", _ring_exchange_cuda, "CUDA")
+_LIB.impl("ring_exchange_planes", _ring_exchange_cpu, "CPU")
+torch.library.register_fake("consul_tpu_torch::ring_exchange_planes",
+                            _inboxes, lib=_LIB)
+_ring_exchange_op = torch.ops.consul_tpu_torch.ring_exchange_planes.default
+
+
 def ring_exchange_planes(planes) -> tuple:
     """int32 outbox planes ``[D_src, D_dst, budget]`` or, with a sweep's
     universe axis, ``[U, D_src, D_dst, budget]`` (one shape and stride for
@@ -155,23 +206,7 @@ def ring_exchange_planes(planes) -> tuple:
     CPU tensors go through :func:`ring_exchange_planes_plain`; CUDA
     tensors launch the kernel on the current stream or raise."""
     _check_planes(planes)
-    p0 = planes[0]
-    if p0.device.type == "cpu":
-        return ring_exchange_planes_plain(planes)
-    *lead, d, _, budget = p0.shape
-    u = lead[0] if lead else 1
-    c = len(planes)
-    out = torch.empty((c, *lead, d, d * budget), dtype=torch.int32,
-                      device=p0.device)
-    if budget and d and u:
-        base, size = out.data_ptr(), u * d * d * budget * 4
-        src_u = p0.stride(0) if lead else 0
-        _launch([p.data_ptr() for p in planes],
-                (src_u, *p0.stride()[-3:-1]),
-                [base + i * size for i in range(c)],
-                (d * d * budget, d * budget, budget), u, d, budget,
-                p0.device)
-    return out.unbind(0)
+    return _ring_exchange_op(list(planes)).unbind(0)
 
 
 def ring_exchange(box: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ def _masked_targets(dest: torch.Tensor, targets: torch.Tensor,
     n = dest.shape[-1]
     flat = torch.where(mask, targets.to(torch.int64), n)
     if dest.dim() > 1:
-        rows = torch.arange(dest[..., 0].numel(), device=dest.device)
+        rows = torch.arange(dest[..., 0].numel(), dtype=torch.int64,
+                            device=dest.device)
         rows = rows.reshape(*dest.shape[:-1], *([1] * (flat.dim()
                                                      - dest.dim() + 1)))
         flat = flat + rows * (n + 1)

@@ -50,12 +50,21 @@ _BLOCK_ROWS = 1 << 21
 
 def host_cond(pred: torch.Tensor) -> bool:
     """The eager form of ``lax.cond``'s dispatch: read a device boolean on
-    the host (one synchronisation, counted in ``host_cond.syncs``)."""
+    the host (one synchronisation, counted in ``host_cond.syncs``).
+
+    While a program's tick is traced (``analysis/graph.py``), a fake
+    tensor has no value to read: ``host_cond.override`` then records the
+    sync as a node of the graph and names the branch the trace takes.
+    Outside a trace it is None, and the cost is that one check."""
+    if host_cond.override is not None:
+        return host_cond.override(pred)
     host_cond.syncs += 1
-    return bool(pred)
+    # The one read itself: PERF.md section 2's allowed syncs.
+    return bool(pred)  # tracelint: disable=R2 (the counted host read)
 
 
 host_cond.syncs = 0
+host_cond.override = None
 
 
 def _row_blocks(n: int):
@@ -102,7 +111,8 @@ def row_base(slot_subj: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
     base = torch.clamp(recv.long(), 0, n - 1) * K
     nb = slot_subj.dim() - 2
     if nb:
-        g = torch.arange(slot_subj[..., 0, 0].numel(), device=recv.device)
+        g = torch.arange(slot_subj[..., 0, 0].numel(), dtype=torch.int64,
+                         device=recv.device)
         base = base + (g * (n * K)).reshape(
             *slot_subj.shape[:nb], *([1] * (recv.dim() - nb)))
     return base
@@ -368,7 +378,8 @@ def merge_into_rows(
         def flat(x):
             return x.reshape(-1)
 
-        g = torch.arange(groups, device=recv.device).reshape(*batch, 1)
+        g = torch.arange(groups, dtype=torch.int64,
+                         device=recv.device).reshape(*batch, 1)
         recv_f = flat(recv.long() + g * n).to(recv.dtype)
         sus_f = flat(sus) if isinstance(sus, torch.Tensor) else sus
         masks = tuple(m if callable(m) else rows2(m)

@@ -178,7 +178,8 @@ def _poisson_knuth(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
         for i in range(POISSON_BLOCK):
             k = k + (log_prod > neg_lam).to(torch.int32)
             log_prod = log_prod + logs[i]
-        if not host_cond((log_prod > neg_lam).any()):
+        if not host_cond(  # tracelint: disable=R2 (block test)
+                (log_prod > neg_lam).any()):
             return k - 1
 
 
@@ -223,7 +224,8 @@ def _poisson_rejection(key: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
             accept = accept & open_u
         k_out = torch.where(accept, kk, k_out)
         accepted = accepted | accept
-        if not host_cond((~accepted).any()):
+        if not host_cond(  # tracelint: disable=R2 (a while_loop)
+                (~accepted).any()):
             return k_out.to(torch.int32)
 
 
@@ -240,7 +242,8 @@ def poisson(key: torch.Tensor, lam: torch.Tensor,
     zero = torch.zeros((), dtype=torch.float32, device=lam.device)
     result = _poisson_knuth(key, torch.where(use_knuth, lam, zero))
     if lam_max is None or lam_max >= 10:
-        if host_cond((~use_knuth).any()):
+        if host_cond(  # tracelint: disable=R2 (a lax.cond)
+                (~use_knuth).any()):
             big = torch.full((), 1e5, dtype=torch.float32, device=lam.device)
             rejected = _poisson_rejection(
                 key, torch.where(use_knuth, big, lam))

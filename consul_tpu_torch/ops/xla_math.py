@@ -136,7 +136,7 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
     a Cephes rational ``x - x**2/2 + x**3 * P(x)/Q(x)`` below."""
     def horner(coeffs):
         r = torch.zeros_like(x)
-        for coeff in coeffs:
+        for coeff in coeffs:  # tracelint: disable=R7 (Python floats)
             r = fma(r, x, coeff)
         return r
 

@@ -229,7 +229,8 @@ def _mark(hits: torch.Tensor, flat: torch.Tensor) -> None:
     row."""
     batch = hits.shape[:-1]
     if batch:
-        g = torch.arange(hits[..., 0].numel(), device=flat.device)
+        g = torch.arange(hits[..., 0].numel(), dtype=torch.int64,
+                         device=flat.device)
         flat = flat + g.view(*batch, *([1] * (flat.dim() - len(batch)))
                              ) * hits.shape[-1]
     hits.view(-1)[flat.reshape(-1)] = True
@@ -372,7 +373,7 @@ def _route_and_exchange(dest, ok, cols: tuple, d_shards: int, budget: int,
     """Pack each shard's messages to other shards (``dest``/``ok``/``cols``:
     ``[*B, D, A]``) and exchange the outboxes: returns ``(inbox planes
     [*B, D, D*budget], dropped [*B, D])``."""
-    me = torch.arange(d_shards, device=dest.device)[:, None]
+    me = torch.arange(d_shards, dtype=torch.int64, device=dest.device)[:, None]
     packed, dropped = pack_outbox(dest, ok & (dest != me), cols, d_shards,
                                   budget)
     return exchange_outbox(packed, backend=exchange), dropped
@@ -486,7 +487,7 @@ def sharded_membership_round(state: MembershipState, key_rng: torch.Tensor,
     # (the last row a sink); remote ones ride the outbox and land from the
     # inbox.  Both are maxima, so order is free.
     dest = recv // blk
-    me = torch.arange(d_shards, device=dev)[:, None]
+    me = torch.arange(d_shards, dtype=torch.int64, device=dev)[:, None]
     local = ok3 & (dest == me)
     key_rx = cell_rx(batch, n, dev)
     sus_rx = cell_rx(batch, n, dev)
@@ -649,7 +650,8 @@ def sharded_sparse_membership_round(state: SparseMembershipState,
 
     # Route: own rows direct, the rest through the outbox.
     dest = recv.long() // plan.blk
-    local = ok & (dest == torch.arange(d_shards, device=dev)[:, None])
+    local = ok & (dest == torch.arange(d_shards, dtype=torch.int64,
+                                       device=dev)[:, None])
     (ib_recv, ib_subj, ib_val, ib_sus, ib_alloc), dropped = (
         _route_and_exchange(dest, ok, (recv, subj, val, sus,
                                        alloc.to(torch.int32)),
@@ -758,7 +760,7 @@ def sharded_geo_scan(state, key: torch.Tensor, cfg, steps: int, mesh: Mesh,
     # A shard emits only the slots of links leaving its own segments.
     budget = outbox_budget(spd * S * U, d_shards)
     consts = geo_constants(cfg, dev)
-    me = torch.arange(d_shards, device=dev)[:, None]
+    me = torch.arange(d_shards, dtype=torch.int64, device=dev)[:, None]
     rows_g = torch.arange(n, dtype=torch.int32, device=dev).view(
         d_shards, blk)
     src_owner = (consts.src // spd)[:, None].expand(S2, U).reshape(-1)

@@ -295,7 +295,7 @@ def _link_mask(bs: BandwidthSchedule, segments: int,
                device) -> torch.Tensor:
     """bool[S, S] on ``device``: the directed links a schedule constrains
     (``src``/``dst`` select one segment each, -1 every segment)."""
-    seg = torch.arange(segments, device=device)
+    seg = torch.arange(segments, dtype=torch.int64, device=device)
     mask = torch.ones((segments, segments), dtype=torch.bool, device=device)
     for sel, name in ((bs.src, "src"), (bs.dst, "dst")):
         if sel < 0:

@@ -53,7 +53,8 @@ def standing_backlog(ev_tick: torch.Tensor, backlog: int) -> torch.Tensor:
     starts with B events in flight, then the ongoing arrival process."""
     if backlog <= 0:
         return ev_tick
-    idx = torch.arange(ev_tick.shape[-1], device=ev_tick.device)
+    idx = torch.arange(ev_tick.shape[-1], dtype=torch.int64,
+                       device=ev_tick.device)
     return torch.where(idx < backlog, 0, ev_tick)
 
 

@@ -15,10 +15,17 @@ shapes and dtypes with no storage, so :meth:`SimProgram.state_bytes` of a
 10M-node program costs nothing.  The sharded twins run over D logical
 shards of one device, so every D registers whatever the device count.
 
-The reference's analyzer metadata (``x64``, ``bounds``, ``trace()``)
-serves jaxlint, rangelint and tracelint, which are not ported; the
-registry carries none of it.  :func:`walk_equiv_pairs` executes both
-sides of each rung and compares them bit for bit, the port's form of
+The analyzers' metadata (``consul_tpu_torch/analysis``):
+:meth:`SimProgram.trace` is the ATen graph of one tick of the program (the
+jaxpr's counterpart:
+``analysis/graph.py``, fake tensors, nothing allocated), with ``steps``
+its trip count; :meth:`SimProgram.traces` holds one graph for each branch
+its host reads can take.  ``bounds()`` gives the initial-value interval
+of every argument leaf, congruent with ``make_args``'s tree, for
+rangelint.  The reference's ``x64`` flag has no counterpart: the port's
+dtypes are explicit, and its 64-bit sites are declared
+(``analysis/tracelint.DECLARED_64BIT``).  :func:`walk_equiv_pairs`
+executes both sides of each rung and compares them bit for bit,
 equivlint's WITNESSED verdict.
 """
 
@@ -106,6 +113,24 @@ class SimProgram:
     init: Optional[Callable[[Any], Any]] = None
     steps: Optional[int] = None
     at_steps: Optional[Callable[[int], Callable]] = None
+    bounds: Optional[Callable[[], Any]] = None
+
+    def trace(self, branch: str = "taken"):
+        """The ATen ``GraphModule`` of one tick (``gm.tick`` carries
+        ``steps``, the inputs' names and shapes and the host reads);
+        ``branch`` names the way every host-read branch goes."""
+        from consul_tpu_torch.analysis.graph import trace_program
+
+        return trace_program(self, branch)
+
+    def traces(self) -> list:
+        """One tick graph for each branch the tick's host reads can take:
+        ``[taken]``, and ``skipped`` beside it where the tick has a
+        branching read (the reference's ``lax.cond`` holds both)."""
+        taken = self.trace("taken")
+        if any(s["kind"] == "branch" for s in taken.tick.syncs):
+            return [taken, self.trace("skipped")]
+        return [taken]
 
     def state_bytes(self) -> int:
         """Bytes of the program's arguments, from their shapes on the
@@ -114,6 +139,104 @@ class SimProgram:
         _, make_args = self.build()
         with META:
             return tree_bytes(make_args(META))
+
+
+# ---------------------------------------------------------------------------
+# rangelint's bound metadata: the initial-value interval of each argument
+# plane, from the configuration (consul_tpu/sim/engine.py:1037-1200).  The
+# analysis widens them to the tick's carry fixpoint, so they describe what
+# the program is handed, not the steady state.
+# ---------------------------------------------------------------------------
+
+
+def _bound(lo=None, hi=None):
+    from consul_tpu_torch.analysis.rangelint import Bound
+
+    return Bound(lo, hi)
+
+
+def _broadcast_bounds(cfg):
+    from consul_tpu_torch.models.broadcast import BroadcastState
+
+    return (BroadcastState(knows=_bound(0, 1),
+                           tx_left=_bound(0, cfg.tx_limit),
+                           tick=_bound(0, 0)), _bound())
+
+
+def _membership_bounds(cfg):
+    from consul_tpu_torch.models.membership import NEVER, MembershipState
+
+    nv, z = int(NEVER), _bound(0, 0)
+    return (MembershipState(
+        key=_bound(-1, 0), suspect_since=_bound(nv, nv), confirms=z, tx=z,
+        own_inc=z, awareness=z, probe_pending_at=_bound(nv, nv),
+        probe_subject=z, tick=z), _bound())
+
+
+def _sparse_bounds(cfg):
+    from consul_tpu_torch.models.membership import NEVER
+    from consul_tpu_torch.models.membership_sparse import (
+        AGE_NONE,
+        SparseMembershipState,
+    )
+
+    nv, z = int(NEVER), _bound(0, 0)
+    return (SparseMembershipState(
+        slot_subj=_bound(-1, cfg.base.n - 1), key=z,
+        suspect_since=_bound(AGE_NONE, AGE_NONE), confirms=z, tx=z,
+        own_inc=z, awareness=z, probe_pending_at=_bound(nv, nv),
+        probe_subject=z, overflow=z, forgotten=z, tick=z), _bound())
+
+
+def _swim_bounds(cfg):
+    from consul_tpu_torch.models.swim import NEVER, SwimState
+
+    nv, z = int(NEVER), _bound(0, 0)
+    return (SwimState(
+        view=z, inc_seen=z, suspect_since=_bound(nv, nv), confirmations=z,
+        tx_suspect=z, sus_era=z, tx_dead=z, dead_era=z, tx_refute=z,
+        ref_era=z, probe_pending_at=_bound(nv, nv), awareness=z,
+        subject_inc=z, tick=z), _bound())
+
+
+def _geo_bounds(cfg):
+    from consul_tpu_torch.geo.model import GeoState
+
+    return (GeoState(
+        knows=_bound(0, 1), tx_lan=_bound(0, cfg.tx_limit_lan),
+        ring=_bound(0, 0), queue=_bound(0, 0), known_hist=_bound(0, 1),
+        ewma=_bound(), wasted=_bound(0, 0), tick=_bound(0, 0)), _bound())
+
+
+def _streamcast_bounds(cfg):
+    from consul_tpu_torch.streamcast.model import StreamcastState
+
+    z = _bound(0, 0)
+    return (StreamcastState(
+        chunks=_bound(0, 1), tx_left=z, cursor=z,
+        slot_event=_bound(-1, -1), slot_birth=z, offered=z, delivered=z,
+        quiesced=z, window_overflow=z, coalesced=z, tick=z), _bound())
+
+
+def _multidc_bounds(cfg):
+    from consul_tpu_torch.models.multidc import MultiDCState
+
+    return (MultiDCState(knows=_bound(0, 1),
+                         tx_lan=_bound(0, cfg.tx_limit_lan),
+                         tx_wan=_bound(0, cfg.tx_limit_wan),
+                         tick=_bound(0, 0)), _bound())
+
+
+_BOUNDS = {
+    "broadcast_init": _broadcast_bounds,
+    "membership_init": _membership_bounds,
+    "sparse_membership_init": _sparse_bounds,
+    "swim_init": _swim_bounds,
+    "lifeguard_init": _swim_bounds,
+    "multidc_init": _multidc_bounds,
+    "streamcast_init": _streamcast_bounds,
+    "geo_init": _geo_bounds,
+}
 
 
 def _program(name: str, entrypoint: str, init: Callable, scan: Callable,
@@ -136,8 +259,10 @@ def _program(name: str, entrypoint: str, init: Callable, scan: Callable,
         return at_steps(steps), make_args
 
     kw.setdefault("n", cfg.base.n if hasattr(cfg, "base") else cfg.n)
+    bounds = _BOUNDS[init.__name__]
     return SimProgram(name=name, entrypoint=entrypoint, build=build,
-                      init=init_on, steps=steps, at_steps=at_steps, **kw)
+                      init=init_on, steps=steps, at_steps=at_steps,
+                      bounds=lambda: bounds(cfg), **kw)
 
 
 def sparse_program_at(n: int, steps: int = 3,

@@ -654,7 +654,8 @@ def streamcast_round(state: StreamcastState, key: torch.Tensor,
         size = n * w_slots * e_chunks
         flat = torch.where(ok, chunk_index(cfg, recv, wix, cix), size)
         if nb:
-            base = torch.arange(state.tick.numel(), device=key.device)
+            base = torch.arange(state.tick.numel(), dtype=torch.int64,
+                                device=key.device)
             flat = flat + base.view(*state.tick.shape, 1) * (size + 1)
         hits = torch.zeros((*state.tick.shape, size + 1), dtype=torch.bool,
                            device=key.device)

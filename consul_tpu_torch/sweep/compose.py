@@ -7,7 +7,10 @@ parts (the port of ``consul_tpu/sweep/compose.py``):
                 U = 1 and U = 4, unsharded and over D logical shards,
                 read with ``torch.cuda.max_memory_allocated``: the bytes
                 each further universe adds, and the universes that fit
-                in the card's own memory at that rate.  The D shards of
+                in the card's own memory at that rate; beside each, the
+                same table from jaxlint J6's estimate (``estimate_peak``
+                of one traced tick, nothing allocated), the reference's
+                reading, on the card or off it.  The D shards of
                 the port live on ONE card and share its memory, so the
                 composed column measures what the composed plane costs
                 on top of the unsharded one (the outboxes, inboxes and
@@ -19,8 +22,8 @@ parts (the port of ``consul_tpu/sweep/compose.py``):
                 would have delivered was delivered) and each universe's
                 final count of observers holding the crashed node DEAD.
 
-Runs on CUDA unless ``--device cpu`` is given; on the CPU the table is
-not measured (``null``) and only the real run is made.
+Runs on CUDA unless ``--device cpu`` is given; on the CPU the measured
+columns are ``null`` and the J6 ones stand alone.
 """
 
 from __future__ import annotations
@@ -73,33 +76,69 @@ def peak_bytes(entrypoint: str, cfg, U: int, steps: int, knobs: tuple,
     return int(peak)
 
 
+def estimated_peak_bytes(entrypoint: str, cfg, U: int, steps: int,
+                         knobs: tuple, track: tuple, mesh) -> int:
+    """jaxlint J6's estimate of the same sweep's peak (one tick traced on
+    fake tensors, nothing allocated): the reference's reading of the
+    table."""
+    from consul_tpu_torch.analysis.graph import capture
+    from consul_tpu_torch.analysis.jaxlint import estimate_peak
+    from consul_tpu_torch.sweep.universe import abstract_sweep_program
+
+    exchange = "alltoall" if mesh is None else "ring"
+    _, make_args = abstract_sweep_program(entrypoint, cfg, steps, U, knobs,
+                                          track, False, mesh, exchange)
+    fn, _ = abstract_sweep_program(entrypoint, cfg, 1, U, knobs, track,
+                                   False, mesh, exchange)
+    gm = capture(f"{entrypoint}@U{U}", fn, make_args, steps)
+    return estimate_peak(gm).chip_bytes
+
+
+def _max_u(peaks: dict, total: int) -> dict:
+    per_u = max((peaks[4] - peaks[1]) / 3.0, 1.0)
+    fixed = max(peaks[1] - per_u, 0.0)
+    return {"peak_bytes_u1": peaks[1], "peak_bytes_u4": peaks[4],
+            "per_universe_bytes": int(per_u),
+            "max_u": int((total - fixed) // per_u)}
+
+
 def compose_max_u(d_shards: int, device, steps: int = 3) -> dict:
     """The sparse@100k table: bytes per universe at U = 1 and U = 4,
     unsharded and over ``d_shards`` shards, and the universes that fit in
     the card's memory at that rate."""
+    from consul_tpu_torch.analysis.jaxlint import H100_80GB_HBM3_BYTES
+
     cfg = sparse100k()
     knobs, values, track = ("base.loss",), ((0.01,),), (42,)
-    total = torch.cuda.get_device_properties(device).total_memory
+    on_card = device.type == "cuda"
+    total = (torch.cuda.get_device_properties(device).total_memory
+             if on_card else H100_80GB_HBM3_BYTES)
 
     def row(mesh):
-        peaks = {u: peak_bytes("sparse", cfg, u, steps, knobs, values, track,
-                               mesh, device) for u in (1, 4)}
-        per_u = max((peaks[4] - peaks[1]) / 3.0, 1.0)
-        fixed = max(peaks[1] - per_u, 0.0)
-        return {"peak_bytes_u1": peaks[1], "peak_bytes_u4": peaks[4],
-                "per_universe_bytes": int(per_u),
-                "max_u": int((total - fixed) // per_u)}
+        out = {}
+        if on_card:
+            out = _max_u({u: peak_bytes("sparse", cfg, u, steps, knobs,
+                                        values, track, mesh, device)
+                          for u in (1, 4)}, total)
+        j6 = _max_u({u: estimated_peak_bytes("sparse", cfg, u, steps, knobs,
+                                             track, mesh)
+                     for u in (1, 4)}, total)
+        out.update({f"j6_{k}": v for k, v in j6.items()})
+        return out
 
     unsharded = row(None)
     composed = row(mesh_for(d_shards, device))
+    over = ({"composed_overhead_per_universe_bytes": (
+        composed["per_universe_bytes"] - unsharded["per_universe_bytes"])}
+        if on_card else {})
     return {"sparse@100k": {
-        "card": torch.cuda.get_device_name(device),
+        "card": (torch.cuda.get_device_name(device) if on_card
+                 else "NVIDIA H100 80GB HBM3 (J6 only, not measured)"),
         "card_bytes": int(total),
         "steps": steps,
         "unsharded": unsharded,
         f"composed_D{d_shards}": dict(composed, devices=d_shards),
-        "composed_overhead_per_universe_bytes": (
-            composed["per_universe_bytes"] - unsharded["per_universe_bytes"]),
+        **over,
         "note": ("the D shards share one card's memory: the composed "
                  "column is the composed plane's own cost (outboxes, "
                  "inboxes, per-shard merge streams), not a capacity "
@@ -166,8 +205,7 @@ def main(argv=None) -> int:
         "devices": args.devices,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else device.type),
-        "max_u_table": (compose_max_u(args.devices, device)
-                        if device.type == "cuda" else None),
+        "max_u_table": compose_max_u(args.devices, device),
     }
     if not args.skip_real_run:
         out["real_run"] = compose_real_run(

@@ -223,17 +223,26 @@ def _commands(parser) -> dict:
 
 
 def test_parser_has_the_reference_commands():
-    """Equal options on every shared command.  The studies (``sim``,
-    ``sweep``, ``profile``) keep the port's own parsers, held to the
-    reference by ``tests/test_torch_cli.py``: each has ``--device`` and
-    every destination of the reference's."""
+    """Equal options on every command.  The studies (``sim``, ``sweep``,
+    ``profile``) keep the port's own parsers, held to the reference by
+    ``tests/test_torch_cli.py``: each has ``--device`` and every
+    destination of the reference's.  The static-analysis commands add
+    ``--witness-device`` where equivlint witnesses (``equivlint``,
+    ``check``), and ``check``'s J6 budget defaults to the card's share
+    (None) where the reference has one v5e's 16 GB."""
     want = _commands(j_cli.build_parser())
     got = _commands(t_cli.build_parser())
-    assert sorted(got) == sorted(set(want) - LINT_COMMANDS)
+    assert sorted(got) == sorted(want)
     for name, options in got.items():
         if name in ("sim", "sweep", "profile"):
             assert sum(o[0] == ["--device"] for o in options) == 1, name
             assert {o[1] for o in want[name]} <= {o[1] for o in options}
+        elif name in LINT_COMMANDS:
+            ours = [o for o in options if o[0] != ["--witness-device"]]
+            theirs = [(o[0], o[1], None, *o[3:])
+                      if (name, o[1]) == ("check", "budget_gb") else o
+                      for o in want[name]]
+            assert ours == theirs, name
         else:
             assert options == want[name], name
 

@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor the JAX package."""
 
+import argparse
 import ast
 import pathlib
 import subprocess
@@ -64,6 +65,12 @@ MODULES = (
     "consul_tpu_torch.connect.service", "consul_tpu_torch.connect.proxy",
     "consul_tpu_torch.api", "consul_tpu_torch.api.client",
     "consul_tpu_torch.api.watch", "consul_tpu_torch.bench_kv",
+    "consul_tpu_torch.analysis", "consul_tpu_torch.analysis.graph",
+    "consul_tpu_torch.analysis.tracelint",
+    "consul_tpu_torch.analysis.jaxlint",
+    "consul_tpu_torch.analysis.rangelint",
+    "consul_tpu_torch.analysis.equivlint",
+    "consul_tpu_torch.analysis.guards",
     "chip_smoke",
 )
 # The agent plane: the agent with its HTTP API and DNS, and the command
@@ -103,17 +110,55 @@ def test_every_port_module_is_checked():
 
 
 def test_port_covers_the_reference():
-    """Every module of the JAX package has its counterpart in the port, but
-    the six of ``analysis/``, which lint jaxprs: a PyTorch program has
-    none."""
+    """Every module of the JAX package has its counterpart in the port
+    (``analysis/`` reads the ATen graph of a tick where the reference
+    reads a jaxpr)."""
     def modules(pkg):
         return {p.relative_to(ROOT / pkg).with_suffix("").as_posix()
                 for p in (ROOT / pkg).rglob("*.py")}
 
     missing = sorted(modules("consul_tpu") - modules("consul_tpu_torch"))
-    assert missing == ["analysis/__init__", "analysis/equivlint",
-                       "analysis/guards", "analysis/jaxlint",
-                       "analysis/rangelint", "analysis/tracelint"]
+    assert missing == []
+
+
+ANALYSIS_COMMANDS = ("lint", "jaxlint", "rangelint", "equivlint", "check")
+# Options the port adds to a command, and defaults it changes: J6's
+# budget is the card's share, not one v5e's 16 GB.
+ADDED = {"equivlint": {"--witness-device"}, "check": {"--witness-device"}}
+CHANGED_DEFAULTS = {("check", "budget_gb"): (16.0, None)}
+
+
+def _subparser(build, name):
+    parser = build()
+    (sub,) = [a for a in parser._actions
+              if isinstance(a, argparse._SubParsersAction)]
+    return sub.choices[name]
+
+
+def _options(parser) -> dict:
+    return {tuple(a.option_strings) or (a.dest,):
+            (a.dest, a.default, a.choices and tuple(a.choices), a.nargs)
+            for a in parser._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("name", ANALYSIS_COMMANDS)
+def test_analysis_commands_keep_the_reference_options(name):
+    """The five static-analysis commands take the reference's options
+    (flags, destinations, defaults, choices), as
+    ``tests/test_torch_entry_points.py`` pins the ``run_*`` signatures."""
+    from consul_tpu import cli as ref_cli
+    from consul_tpu_torch import cli
+
+    want = _options(_subparser(ref_cli.build_parser, name))
+    have = _options(_subparser(cli.build_parser, name))
+    for flags, (dest, default, choices, nargs) in want.items():
+        assert flags in have, (name, flags)
+        h_dest, h_default, h_choices, h_nargs = have[flags]
+        expect = CHANGED_DEFAULTS.get((name, dest), (default, default))[1]
+        assert (h_dest, h_default, h_choices, h_nargs) == (
+            dest, expect, choices, nargs), (name, flags)
+    extra = {f for flags in set(have) - set(want) for f in flags}
+    assert extra == ADDED.get(name, set()), (name, extra)
 
 
 def test_import_loads_no_jax():

@@ -101,6 +101,9 @@ def test_abstract_only_entry_is_sized_and_never_run():
     assert p.execute_skipped == ("abstract-only registry entry "
                                  "(never compiled/executed)")
     assert p.execute_s is None and p.argument_bytes == 7_810_000_028
+    # jaxlint J6's peak beside the state bytes: the state, its successor
+    # and the tick's temporaries, under 90% of an H100 80GB HBM3.
+    assert 2 * p.argument_bytes < p.j6_peak_bytes < int(0.9 * 85e9)
 
 
 def test_window_bounds_the_first_call():
